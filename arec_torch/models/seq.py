@@ -1,0 +1,291 @@
+"""LSTM/GRU sequence-recommendation model family (port of
+`arec/models/seq.py`, serving half).
+
+Next-item prediction over a user's time-ordered item sequence: the input
+at step t is the fused attribute embedding of item t (optionally + the user
+embedding), stacked LSTM/GRU cells, and scoring against a dedicated item
+output table. Sequences are left-padded to max_seq_len L and the state
+updates are masked, so pad steps are exact no-ops and the state at
+position L−1 is the state after the user's whole (truncated) history.
+
+The recurrence runs either as the plain scan below (`rnn_scan`: the
+reference the kernel is held against) or, with `use_pallas_scan` and
+`cell="lstm"`, through `arec_torch.kernels.lstm_scan` — the hand-written
+CUDA kernel for CUDA tensors. The same (xw, wh) layout serves both: the
+input projection x·Wx + b for all steps is one matmul outside the scan and
+only h·Wh is sequential.
+
+`seq_loss`, dropout and the train-path segments come with the training
+slice.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from arec_torch.config import Config
+from arec_torch.data.schema import EntitySchema
+from arec_torch.tables.engine import (
+    EncoderSpec, encode, encode_all_items_with_bias, init_encoder, mm_f32,
+)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class SeqSpec:
+    item_in: EncoderSpec            # input-side fused item encoder
+    user: EncoderSpec | None        # optional user encoder (concat_user)
+    cell: str = "lstm"              # {lstm, gru}
+    num_layers: int = 1
+    max_seq_len: int = 30           # scan segment length
+    train_segments: int = 1         # segments per training example
+    num_sampled: int = 256
+    sampler: str = "log_uniform"
+    keep_prob: float = 1.0
+    use_pallas_scan: bool = False   # the config name: in the port, the
+                                    # hand-written CUDA scan kernel
+    tie_output: bool = False        # score against the fused item encoder
+    compute_dtype: str = "bfloat16"
+    act_dtype: str = "float32"      # train-path activation dtype
+
+    @property
+    def dim(self) -> int:
+        return self.item_in.dim
+
+    @property
+    def vocab(self) -> int:
+        return self.item_in.schema.num_entities
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def act_dt(self):
+        """torch dtype for train-path activations; None = float32."""
+        return None if self.act_dtype == "float32" else _DTYPES[
+            self.act_dtype]
+
+    @staticmethod
+    def from_config(cfg: Config, user_schema: EntitySchema,
+                    item_schema: EntitySchema) -> "SeqSpec":
+        if cfg.train.loss not in ("ce", "mce"):
+            raise ValueError(
+                f"sequence model supports loss ce/mce, not "
+                f"{cfg.train.loss!r}")
+        if not cfg.model.use_attributes:
+            item_schema = item_schema.id_only()
+            user_schema = user_schema.id_only()
+        mk = lambda s, wb=False: EncoderSpec(
+            s, cfg.model.dim, cfg.model.fusion, cfg.model.nonlinear,
+            with_bias=wb,
+            dense_mulhot_threshold=cfg.model.dense_vocab_threshold)
+        return SeqSpec(
+            item_in=mk(item_schema, wb=cfg.model.tie_output),
+            user=mk(user_schema) if cfg.model.concat_user else None,
+            cell=cfg.model.cell,
+            num_layers=cfg.model.num_layers,
+            max_seq_len=cfg.model.max_seq_len,
+            train_segments=cfg.model.train_segments,
+            num_sampled=cfg.train.num_sampled,
+            sampler=cfg.train.sampler,
+            keep_prob=cfg.model.keep_prob,
+            use_pallas_scan=cfg.model.use_pallas_scan,
+            tie_output=cfg.model.tie_output,
+            compute_dtype=cfg.train.compute_dtype,
+            act_dtype=cfg.train.act_dtype,
+        )
+
+
+def _gate_count(cell: str) -> int:
+    return {"lstm": 4, "gru": 3}[cell]
+
+
+def init_seq(gen: torch.Generator, spec: SeqSpec) -> dict:
+    """arec's seq param layout, shapes and scales, drawn from `gen` on
+    `gen.device`: {"item_in", ["user"], "rnn": [{"w", "b"}], ["item_out"]}
+    with `w` the fused [D_in + H, G·H] matrix (gate order i|f|g|o)."""
+    d, g = spec.dim, _gate_count(spec.cell)
+    dev = gen.device
+    params: dict = {"item_in": init_encoder(gen, spec.item_in)}
+    if spec.user is not None:
+        params["user"] = init_encoder(gen, spec.user)
+    layers = []
+    for _ in range(spec.num_layers):
+        d_in = d  # input dim == hidden dim at every layer (single --size)
+        w = torch.randn(d_in + d, g * d, generator=gen, device=dev) / \
+            math.sqrt(d_in + d)
+        b = torch.zeros(g * d, device=dev)
+        if spec.cell == "lstm":
+            b[d:2 * d] = 1.0   # forget-gate bias 1.0
+        layers.append({"w": w, "b": b})
+    params["rnn"] = layers
+    if not spec.tie_output:
+        # [V+1, D+1]: per-item score bias in column D, one PAD row
+        t = torch.randn(spec.vocab + 1, d + 1, generator=gen, device=dev) / \
+            math.sqrt(d)
+        t[:, d] = 0.0
+        params["item_out"] = t
+    return params
+
+
+# --------------------------------------------------------------------------
+# Recurrence: the plain scan (reference for the kernel)
+# --------------------------------------------------------------------------
+
+def input_projection(p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
+    """x [..., D_in] → xw [..., G·H] = x · Wx + b (bias folded in), with
+    the operands in `dtype` and the product in f32."""
+    d_in = x.shape[-1]
+    return mm_f32(x, p["w"][:d_in], dtype) + p["b"]
+
+
+def lstm_step(wh, xw_t, h, c, dtype):
+    """One LSTM step from precomputed input projection xw_t [B, 4H]."""
+    gates = xw_t + mm_f32(h, wh, dtype)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def gru_step(wh, xw_t, h, c, dtype):
+    """One GRU step; xw_t [B, 3H] = x·[Wx_r|Wx_u|Wx_n] + b."""
+    d = h.shape[-1]
+    hw = mm_f32(h, wh[:, : 2 * d], dtype)
+    r = torch.sigmoid(xw_t[:, :d] + hw[:, :d])
+    u = torch.sigmoid(xw_t[:, d : 2 * d] + hw[:, d:])
+    n = torch.tanh(xw_t[:, 2 * d :] + mm_f32(r * h, wh[:, 2 * d :], dtype))
+    h_new = (1.0 - u) * n + u * h
+    return h_new, c
+
+
+def layer_scan(p: dict, cell: str, x: torch.Tensor, mask: torch.Tensor,
+               dtype, state: tuple | None = None, return_state: bool = False):
+    """One recurrent layer: x [B, L, D], mask [B, L] → h_all [B, L, H].
+    Masked state updates make pad steps exact no-ops; `state` is an
+    optional (h0, c0) carry-in and return_state=True also returns the
+    final (hT, cT)."""
+    d = p["w"].shape[0] - x.shape[-1]
+    wh = p["w"][x.shape[-1]:]
+    xw = input_projection(p, x, dtype)                    # [B, L, G·H]
+    step_fn = lstm_step if cell == "lstm" else gru_step
+    if state is None:
+        zeros = torch.zeros(x.shape[0], d, device=x.device)
+        state = (zeros, zeros)
+    h, c = state
+    out = []
+    for t in range(xw.shape[1]):
+        m = mask[:, t, None]
+        h_new, c_new = step_fn(wh, xw[:, t], h, c, dtype)
+        h = m * h_new + (1.0 - m) * h
+        c = m * c_new + (1.0 - m) * c
+        out.append(h)
+    out = torch.stack(out, dim=1)
+    if return_state:
+        return out, (h, c)
+    return out
+
+
+def rnn_scan(layers: list[dict], cell: str, x: torch.Tensor,
+             mask: torch.Tensor, dtype, states: list | None = None,
+             return_states: bool = False):
+    """Stacked layers; returns top-layer hidden states [B, L, H];
+    `states` are per-layer (h0, c0) carries."""
+    h = x
+    new_states = []
+    for li, p in enumerate(layers):
+        st = states[li] if states is not None else None
+        h, stT = layer_scan(p, cell, h, mask, dtype, state=st,
+                            return_state=True)
+        new_states.append(stT)
+    if return_states:
+        return h, new_states
+    return h
+
+
+# --------------------------------------------------------------------------
+# Forward / recommend
+# --------------------------------------------------------------------------
+
+def seq_inputs(params, spec: SeqSpec, item_dev, user_dev, batch):
+    """Fused per-step input embeddings [B, L, D]."""
+    x = encode(params["item_in"], spec.item_in, item_dev, batch["inputs"],
+               act_dtype=spec.act_dt)
+    if spec.user is not None:
+        u = encode(params["user"], spec.user, user_dev, batch["user"],
+                   act_dtype=spec.act_dt)
+        x = x + u[:, None, :]
+    return x
+
+
+def init_states(spec: SeqSpec, batch_size: int, device) -> list:
+    """Zero per-layer (h, c) carries for segmented scans."""
+    z = torch.zeros(batch_size, spec.dim, device=device)
+    return [(z, z) for _ in range(spec.num_layers)]
+
+
+def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
+               states: list | None = None, return_states: bool = False):
+    """Top-layer hidden states [B, L, H]. `states`/`return_states` expose
+    the per-layer (h, c) carries of the segmented scan. With
+    use_pallas_scan, cell="lstm" runs the CUDA kernel (its plain version
+    on CPU tensors); the GRU kernel is not ported yet and raises rather
+    than falling back to the plain scan."""
+    x = seq_inputs(params, spec, item_dev, user_dev, batch)
+    mask = batch["mask"]
+    if spec.use_pallas_scan and spec.cell == "lstm":
+        from arec_torch.kernels.lstm_scan import lstm_scan
+        return lstm_scan(params["rnn"], x, mask, dtype=spec.dtype,
+                         states=states, return_states=return_states)
+    if spec.use_pallas_scan and spec.cell == "gru":
+        raise NotImplementedError("GRU kernel: later slice")
+    return rnn_scan(params["rnn"], spec.cell, x, mask, spec.dtype,
+                    states=states, return_states=return_states)
+
+
+def seq_final_state(params, spec: SeqSpec, item_dev, user_dev,
+                    batch) -> torch.Tensor:
+    """Recommend path: with left-padding the state at the last position is
+    the state after the user's whole (truncated) history."""
+    return seq_hidden(params, spec, item_dev, user_dev, batch)[:, -1, :]
+
+
+def seq_final_state_full(params, spec: SeqSpec, item_dev, user_dev,
+                         batch) -> torch.Tensor:
+    """Final state over a history of ANY length: batch["inputs"]/["mask"]
+    are [B, n·L]; the scan runs in n segments of length L, carrying (h, c).
+    With left-padding this is exactly the state of the unsegmented scan."""
+    L = spec.max_seq_len
+    total = batch["inputs"].shape[1]
+    if total % L:
+        raise ValueError(f"history width {total} is not a multiple of "
+                         f"max_seq_len {L}")
+    n = total // L
+    if n == 1:
+        return seq_final_state(params, spec, item_dev, user_dev, batch)
+    states = init_states(spec, batch["inputs"].shape[0],
+                         batch["inputs"].device)
+    for s in range(n):
+        seg = dict(batch)
+        seg["inputs"] = batch["inputs"][:, s * L:(s + 1) * L]
+        seg["mask"] = batch["mask"][:, s * L:(s + 1) * L]
+        h, states = seq_hidden(params, spec, item_dev, user_dev, seg,
+                               states=states, return_states=True)
+    return h[:, -1, :]
+
+
+def seq_item_latents(params, spec: SeqSpec, item_dev=None):
+    """Output-side item matrix [V, D] + bias [V] for retrieval."""
+    v, d = spec.vocab, spec.dim
+    if spec.tie_output:
+        return encode_all_items_with_bias(params["item_in"], spec.item_in,
+                                          item_dev)
+    t = params["item_out"]
+    # the bias column is copied out contiguous (a strided [V] view would be
+    # re-read with a 4(D+1)-byte stride by every query row of the top-k)
+    return t[:v, :d], t[:v, d].contiguous()

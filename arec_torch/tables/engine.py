@@ -1,0 +1,341 @@
+"""Embedding-table engine (port of `arec/tables/engine.py`): one fused,
+row-concatenated table per entity, lookup, mulhot pooling, entity encode.
+
+The layout is arec's, unchanged, so the bridge hands tables over as they
+are: dense (small-vocab) fields form a prefix of the fused table and are
+served by a constant one-hot / normalised-multihot map times the
+sub-table; the entity-ID field's rows are `id + offset`; large-vocab cat
+fields go through an indirection gather; large-vocab mulhot fields are one
+gather plus a masked mean. Pad entities encode to exactly zero.
+
+Index semantics follow JAX's, since a CUDA index out of range fires a
+device-side assert that would kill a standing server: `dense_lookup`
+clamps (jnp.take mode="clip"), and the attribute-map gathers wrap negative
+ids once and then clamp (jnp `x[idx]`).
+
+The sparse-update subset helpers and `make_compact_lookup` come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from arec_torch.data.schema import CAT, MULHOT, AttributeData, EntitySchema
+from arec_torch.fusion.fuse import apply_fusion, init_fusion
+
+Params = dict
+
+FUSED = "__fused__"
+
+
+@dataclass(frozen=True)
+class EncoderSpec:
+    """Static configuration of one entity encoder (user-side or item-side)."""
+
+    schema: EntitySchema
+    dim: int
+    fusion: str = "concat"      # {concat, sum}
+    nonlinear: bool = False
+    with_bias: bool = False     # per-entity bias scalar in COLUMN `dim` of
+                                # the fused table (entity-ID field rows)
+    dense_mulhot_threshold: int = 512   # vocab ≤ this → multihot-matmul pooling
+    # cap on the dense map (4·(N+1)·vocab_f bytes per field), so huge entity
+    # counts never trade a gather for GBs
+    dense_map_max_bytes: int = 256 << 20
+
+    @property
+    def needs_proj(self) -> bool:
+        # single-attribute concat without nonlinearity is the identity
+        return self.fusion == "concat" and (
+            len(self.schema.fields) > 1 or self.nonlinear
+        )
+
+    # ---- fused-table layout (static): dense prefix first, gather tail ----
+    @property
+    def layout_fields(self):
+        """Schema fields in fused-table layout order (dense prefix first)."""
+        return self.dense_fields + [
+            f for f in self.schema.fields if not self._is_dense(f)]
+
+    @property
+    def dense_region_rows(self) -> int:
+        """Rows of the dense prefix (0 when no field is dense)."""
+        return sum(f.table_rows for f in self.dense_fields)
+
+    def field_offsets(self) -> dict[str, int]:
+        """Row offset of each field's sub-table inside the fused table."""
+        off, out = 0, {}
+        for f in self.layout_fields:
+            out[f.name] = off
+            off += f.table_rows
+        return out
+
+    @property
+    def total_rows(self) -> int:
+        return sum(f.table_rows for f in self.schema.fields)
+
+    @property
+    def width(self) -> int:
+        """Fused-table row width: dim (+1 bias column when with_bias)."""
+        return self.dim + (1 if self.with_bias else 0)
+
+    @property
+    def cat_fields(self):
+        return [f for f in self.schema.fields if f.kind == CAT]
+
+    @property
+    def mulhot_fields(self):
+        return [f for f in self.schema.fields if f.kind == MULHOT]
+
+    def _is_dense(self, f) -> bool:
+        map_bytes = 4 * (self.schema.num_entities + 1) * f.vocab_size
+        return (f.vocab_size <= self.dense_mulhot_threshold
+                and map_bytes <= self.dense_map_max_bytes)
+
+    @property
+    def dense_fields(self):
+        """Small-vocab fields (any kind) served by the dense map."""
+        return [f for f in self.schema.fields if self._is_dense(f)]
+
+    @property
+    def gather_cat_fields(self):
+        return [f for f in self.cat_fields if not self._is_dense(f)]
+
+    def is_identity(self, f) -> bool:
+        """True for the entity-ID field: its fused row id is `id + offset`
+        (attrs_to_device checks the data really is the identity)."""
+        return (f is self.schema.fields[0] and f.kind == CAT
+                and f.vocab_size == self.schema.num_entities)
+
+    @property
+    def identity_cat_fields(self):
+        return [f for f in self.gather_cat_fields if self.is_identity(f)]
+
+    @property
+    def gathered_cat_fields(self):
+        """Large-vocab cat fields that still need the indirection gather
+        (columns of attr_dev["cat"], in this order)."""
+        return [f for f in self.gather_cat_fields if not self.is_identity(f)]
+
+    @property
+    def gather_mulhot_fields(self):
+        return [f for f in self.mulhot_fields if not self._is_dense(f)]
+
+
+def init_encoder(gen: torch.Generator, spec: EncoderSpec) -> Params:
+    """One fused table ~ N(0, 1/sqrt(dim)) with every PAD row zeroed (and
+    the bias column, when present, zero), on `gen.device`."""
+    t = torch.randn(spec.total_rows, spec.width, generator=gen,
+                    device=gen.device) / math.sqrt(spec.dim)
+    if spec.with_bias:
+        t[:, spec.dim] = 0.0
+    offsets = spec.field_offsets()
+    pad_rows = [offsets[f.name] + f.pad_index for f in spec.schema.fields]
+    t[pad_rows] = 0.0
+    params: Params = {"tables": {FUSED: t}}
+    if spec.needs_proj:
+        params["fusion"] = init_fusion(
+            gen, len(spec.schema.fields), spec.dim, spec.nonlinear)
+    return params
+
+
+def attrs_to_device(attrs: AttributeData, spec: EncoderSpec,
+                    device="cpu") -> dict[str, torch.Tensor]:
+    """Attribute value maps in the fused-table id space, on `device`, with
+    ONE EXTRA pad entity row (entity id == num_entities) that maps every
+    attribute to its zeroed PAD row / an all-invalid mulhot row.
+
+    Returns {"cat":   int32 [N+1, n_big_cat]     (large-vocab cat fields),
+             "mul":   int32 [N+1, total_deg]     (large-vocab mulhot fields),
+             "dense": float32 [N+1, Σ vocab_f]}  (ALL small-vocab fields).
+    Keys are present only when their field group is non-empty.
+    """
+    offsets = spec.field_offsets()
+    n = attrs.schema.num_entities
+    out: dict[str, np.ndarray] = {}
+
+    for f in spec.identity_cat_fields:
+        if not np.array_equal(attrs.values[f.name],
+                              np.arange(n, dtype=np.int32)):
+            raise ValueError(
+                f"{f.name}: schema position 0 with vocab == num_entities "
+                f"must be the identity map (schema.py id_identity contract)")
+    if spec.gathered_cat_fields:
+        cat_cols = []
+        for f in spec.gathered_cat_fields:
+            v = attrs.values[f.name].astype(np.int64) + offsets[f.name]
+            v = np.concatenate([v, [offsets[f.name] + f.pad_index]])
+            cat_cols.append(v)
+        out["cat"] = np.stack(cat_cols, axis=1).astype(np.int32)
+
+    if spec.gather_mulhot_fields:
+        mul_cols = []
+        for f in spec.gather_mulhot_fields:
+            v = attrs.values[f.name].astype(np.int64)
+            v = np.where(v >= 0, v + offsets[f.name], -1)
+            pad_row = np.full((1, f.max_degree), -1, np.int64)
+            mul_cols.append(np.concatenate([v, pad_row], axis=0))
+        out["mul"] = np.concatenate(mul_cols, axis=1).astype(np.int32)
+
+    if spec.dense_fields:
+        blocks = []
+        for f in spec.dense_fields:
+            m = np.zeros((n + 1, f.vocab_size), np.float32)
+            if f.kind == CAT:
+                m[np.arange(n), attrs.values[f.name]] = 1.0
+                # pad-entity row (index n) stays all-zero → zero embedding
+            else:
+                v = attrs.values[f.name]
+                rows = np.repeat(np.arange(n), f.max_degree).reshape(
+                    n, f.max_degree)
+                valid = v >= 0
+                np.add.at(m, (rows[valid], v[valid]), 1.0)
+                denom = np.maximum(m.sum(axis=1, keepdims=True), 1.0)
+                m = m / denom
+            blocks.append(m)
+        out["dense"] = np.concatenate(blocks, axis=1)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def dense_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Single-device row gather; ids clamp into range like jnp.take's
+    mode="clip" (pad ids address a real zeroed pad row)."""
+    return table[ids.clamp(0, table.shape[0] - 1)]
+
+
+def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`arr[idx]` with jnp's gather semantics: a negative index wraps once,
+    then every index clamps into [0, len)."""
+    n = arr.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    return arr[idx.clamp(0, n - 1)]
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """a·b with both operands rounded to `dtype` and an f32 product: the
+    torch twin of jax's dot(a.astype(dtype), b.astype(dtype),
+    preferred_element_type=f32). A bf16 torch matmul would round the
+    OUTPUT to bf16; here only the operands are rounded (their products are
+    exact in f32, and the sums run in f32)."""
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def encode(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
+           act_dtype=None) -> torch.Tensor:
+    """ids int [...] (values in [0, num_entities]; num_entities = pad) →
+    entity latents float32 [..., dim]. Pad ids encode to exactly zero.
+    act_dtype: arec's train-path activation dtype (None = float32)."""
+    latent, _ = _encode_impl(params, spec, attr_dev, ids, act_dtype)
+    return latent
+
+
+def encode_with_bias(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
+                     act_dtype=None):
+    """(latents [..., dim], bias [...]) — candidate-side encode; the bias is
+    column `dim` of the entity-ID field's row."""
+    if not spec.with_bias:
+        raise ValueError("encode_with_bias needs EncoderSpec.with_bias")
+    return _encode_impl(params, spec, attr_dev, ids, act_dtype)
+
+
+def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
+                 act_dtype=None):
+    batch_shape = ids.shape
+    flat = ids.reshape(-1).long()
+    table = params["tables"][FUSED]
+    d = spec.width
+    acast = (lambda a: a.to(act_dtype)) if act_dtype is not None else (
+        lambda a: a)
+
+    # one gather for every large-vocab cat attribute; entity-ID fields skip
+    # the indirection map (row id = flat + offset)
+    cat_rows = None
+    if spec.gather_cat_fields:
+        offsets = spec.field_offsets()
+        gathered = (_take_rows(attr_dev["cat"], flat).long()
+                    if spec.gathered_cat_fields else None)
+        cols, gi = [], 0
+        for f in spec.gather_cat_fields:
+            if spec.is_identity(f):
+                off = offsets[f.name]
+                cols.append(torch.where(flat < f.vocab_size, flat + off,
+                                        off + f.pad_index))
+            else:
+                cols.append(gathered[:, gi])
+                gi += 1
+        cat_ids = torch.stack(cols, dim=1)                   # [N, n_cat]
+        cat_rows = acast(dense_lookup(table, cat_ids.reshape(-1)))
+        cat_rows = cat_rows.reshape(*cat_ids.shape, d)       # [N, n_cat, D]
+
+    # large-vocab mulhot: one gather + per-field mask-mean
+    pooled: dict[str, torch.Tensor] = {}
+    if spec.gather_mulhot_fields:
+        mul_ids = _take_rows(attr_dev["mul"], flat).long()   # [N, total_deg]
+        safe = torch.where(mul_ids >= 0, mul_ids, 0)
+        rows = acast(dense_lookup(table, safe.reshape(-1)))
+        rows = rows.reshape(*mul_ids.shape, d)               # [N, deg, D]
+        mask = (mul_ids >= 0).to(rows.dtype)[..., None]
+        rows = rows * mask
+        col = 0
+        for f in spec.gather_mulhot_fields:
+            sl_rows = rows[:, col:col + f.max_degree]
+            sl_mask = mask[:, col:col + f.max_degree]
+            denom = sl_mask.sum(dim=-2).clamp_min(1.0)
+            pooled[f.name] = acast(sl_rows.sum(dim=-2) / denom)
+            col += f.max_degree
+
+    # small-vocab fields: one-hot / multihot rows × sub-table
+    if spec.dense_fields:
+        offsets = spec.field_offsets()
+        mrow = _take_rows(attr_dev["dense"], flat)           # [N, Σ vocab_f]
+        mm_dtype = act_dtype if act_dtype is not None else torch.float32
+        col = 0
+        for f in spec.dense_fields:
+            m = mrow[:, col:col + f.vocab_size]
+            sub = table[offsets[f.name]:offsets[f.name] + f.vocab_size]
+            pooled[f.name] = acast(mm_f32(m, sub, mm_dtype))
+            col += f.vocab_size
+
+    # per-attribute embeddings in schema field order (fusion contract); the
+    # bias column (field 0) is sliced off before fusion
+    per_attr: list[torch.Tensor] = []
+    bias = None
+    ci = 0
+    for fi, f in enumerate(spec.schema.fields):
+        row = pooled[f.name] if f.name in pooled else cat_rows[:, ci]
+        if f.name not in pooled:
+            ci += 1
+        if spec.with_bias:
+            if fi == 0:
+                bias = row[:, spec.dim]
+            row = row[:, : spec.dim]
+        per_attr.append(row)
+
+    latent = apply_fusion(params.get("fusion"), per_attr, kind=spec.fusion,
+                          nonlinear=spec.nonlinear, act_dtype=act_dtype)
+    # pad entities (id == num_entities) encode to zero
+    valid = (flat < spec.schema.num_entities).to(latent.dtype)[:, None]
+    latent = (latent * valid).reshape(*batch_shape, spec.dim)
+    if bias is not None:
+        bias = (bias.float() * valid[:, 0].float()).reshape(batch_shape)
+    return latent, bias
+
+
+def encode_all_items_with_bias(params: Params, spec: EncoderSpec,
+                               attr_dev: dict, block: int = 8192):
+    """(V [num_items, dim], bias [num_items]) for full-softmax eval and
+    retrieval, encoded in blocks of `block` ids to bound peak memory."""
+    n = spec.schema.num_entities
+    device = params["tables"][FUSED].device
+    vs, bs = [], []
+    for s in range(0, n, block):
+        ids = torch.arange(s, min(s + block, n), device=device)
+        v, b = encode_with_bias(params, spec, attr_dev, ids)
+        vs.append(v)
+        bs.append(b)
+    return torch.cat(vs), torch.cat(bs)

@@ -28,3 +28,8 @@ enable_compile_cache()   # the suite is compile-heavy; replays are free
 
 assert jax.default_backend() == "cpu", jax.default_backend()
 assert jax.device_count() == 8, jax.device_count()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")

@@ -1,0 +1,93 @@
+"""arec_torch stands alone: no module of it (nor chip_smoke.py) imports jax,
+jaxlib or arec; it serves a request in a process where those cannot be
+imported at all; and its entry point refuses to fall back to the CPU when
+no device was asked for and CUDA is absent."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = sorted(glob.glob(os.path.join(ROOT, "arec_torch", "**", "*.py"),
+                           recursive=True)) + [
+    os.path.join(ROOT, "chip_smoke.py")]
+FORBIDDEN = ("jax", "jaxlib", "arec")
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[os.path.relpath(p, ROOT) for p in SOURCES])
+def test_no_jax_or_arec_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (path, bad)
+
+
+_CHILD = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from arec_torch import bridge
+    from arec_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from arec_torch.data.io import load_or_prepare
+    from arec_torch.models.seq import SeqSpec, init_seq
+    from arec_torch.serve import Recommender
+
+    torch.set_num_threads(1)
+    cfg = Config(
+        data=DataConfig(data_dir=sys.argv[1], syn_users=60, syn_items=50,
+                        syn_interactions=600),
+        model=ModelConfig(model="lstm", dim=8, max_seq_len=6,
+                          use_pallas_scan=True),
+        train=TrainConfig(compute_dtype="float32"))
+    ds = load_or_prepare(cfg.data)
+    spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    params = bridge.to_numpy(init_seq(torch.Generator().manual_seed(0), spec))
+    ids = Recommender(cfg, params, serve_batch=4,
+                      device="cpu").from_histories([[1, 2, 3]])
+    assert ids.shape == (1, 30) and not {1, 2, 3} & set(ids[0].tolist())
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("served", ids[0][:3].tolist())
+""")
+
+
+def test_serves_with_jax_and_arec_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("served")
+
+
+def test_recommender_without_device_refuses_cpu_fallback(monkeypatch):
+    from arec_torch import resolve_device
+    from arec_torch.serve import Recommender
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recommender(None, None)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,141 @@
+"""The slice as a whole: arec_torch's `Recommender.from_histories` against
+arec's, on the same trained weights.
+
+A tiny attribute-aware LSTM is trained with arec's Trainer (plain scan, f32,
+as tests/test_serve.py does). arec's Recommender then serves it with
+`use_pallas_scan=True`, so its queries run the Pallas forward kernel
+(interpret mode on the CPU), and the weights go through the bridge into the
+port's Recommender on the CPU. Query states are held to rtol 1e-4 /
+atol 1e-5 (tests/test_seq.py's forward tolerance); ids are equal up to
+ties (torch_topk_check)."""
+
+import dataclasses
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arec.config import Config, DataConfig, ModelConfig, TrainConfig
+from arec.serve import Recommender as JRecommender
+from arec.train.loop import Trainer
+from arec_torch import serve as tserve
+from arec_torch.config import Config as TConfig
+from torch_topk_check import assert_ids_equal_up_to_ties, ref_scores
+
+torch.set_num_threads(1)
+
+SERVE_BATCH = 16
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
+    cfg = Config(
+        data=DataConfig(dataset="synthetic", data_dir=str(tmp / "d"),
+                        syn_users=300, syn_items=250, syn_interactions=8000),
+        # threshold 16: item ids take the identity gather, genres the
+        # gathered mulhot, category/year the dense map
+        model=ModelConfig(model="lstm", dim=16, use_attributes=True,
+                          max_seq_len=8, use_pallas_scan=False,
+                          dense_vocab_threshold=16),
+        train=TrainConfig(batch_size=64, num_sampled=32, n_epoch=1,
+                          steps_per_checkpoint=500, compute_dtype="float32",
+                          train_dir=str(tmp / "t")))
+    tr = Trainer(cfg)
+    tr.train()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, use_pallas_scan=True))
+    jrec = JRecommender(cfg, serve_batch=SERVE_BATCH)
+    params = jax.tree.map(np.asarray, jrec._params)
+    trec = tserve.Recommender(TConfig.from_json(cfg.to_json()), params,
+                              serve_batch=SERVE_BATCH, device="cpu")
+    hists = [[int(x) for x in tr.ds.hist_items[u][: tr.ds.hist_lengths[u]]]
+             for u in range(40)]
+    return jrec, trec, hists
+
+
+def _port_queries(trec, histories, **kw):
+    """The port's query states and seen slabs for `histories`, batch by
+    batch, as from_histories forms them."""
+    qs, seens, batches = [], [], []
+    for batch, n in trec._history_batches(histories, **kw):
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()
+              if k != "seen"}
+        with torch.inference_mode():
+            q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+                                 trec._user_dev, tb)
+        qs.append(q[:n].numpy())
+        seens.append(batch["seen"][:n])
+        batches.append(batch)
+    return np.concatenate(qs), np.concatenate(seens), batches
+
+
+def _requests(hists, kind):
+    if kind == "short":                       # shorter than one segment
+        return [h[-5:] for h in hists[:20]], {}
+    if kind == "long":                        # > 2·L: three carried segments
+        return [(h * 4)[:21] for h in hists[:20]], {}
+    if kind == "explicit_seen":
+        reqs = [h[-12:] for h in hists[:20]]
+        return reqs, {"seen": [h[:3] + [7, 7] for h in hists[:20]]}
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["short", "long", "explicit_seen"])
+def test_from_histories_matches_arec(served, kind):
+    jrec, trec, hists = served
+    reqs, kw = _requests(hists, kind)
+    want = jrec.from_histories(reqs, **kw)
+    got = trec.from_histories(reqs, **kw)
+    assert got.shape == want.shape == (len(reqs), 30)
+    assert got.dtype == np.int32
+    # ids up to ties, judged on the port's own query states
+    q, seen, _ = _port_queries(trec, reqs, **kw)
+    v, b = (x.float().numpy() for x in trec._vb)
+    scores = ref_scores(q, v, b, seen)
+    want_vals = np.take_along_axis(scores, want.astype(np.int64), axis=1)
+    assert_ids_equal_up_to_ties(got, want_vals, want, scores)
+    for row, s in zip(got, seen):
+        assert not set(row.tolist()) & set(s[s >= 0].tolist())
+
+
+@pytest.mark.parametrize("kind", ["short", "long"])
+def test_query_states_match_arec(served, kind):
+    """The kernel path's final states, segments carried, against arec's
+    Pallas-kernel queries on the same padded batches."""
+    jrec, trec, hists = served
+    reqs, kw = _requests(hists, kind)
+    q, _, batches = _port_queries(trec, reqs, **kw)
+    t = jrec._trainer
+    want = np.concatenate([
+        np.asarray(t._query_fn(jrec._params, {
+            "inputs": jnp.asarray(bt["inputs"]),
+            "mask": jnp.asarray(bt["mask"])}))
+        for bt in batches])[: len(reqs)]
+    np.testing.assert_allclose(q, want, rtol=1e-4, atol=1e-5)
+
+
+def test_empty_request_list(served):
+    jrec, trec, _ = served
+    assert trec.from_histories([]).shape == jrec.from_histories([]).shape \
+        == (0, 30)
+
+
+def test_serve_loop_lines(served):
+    _, trec, hists = served
+    h = hists[1][-6:]
+    line = ",".join(map(str, h))
+    inp = io.StringIO(f"{line}\n\nnot,ids\n!step\n!refresh\n!quit\n4,5\n")
+    out = io.StringIO()
+    assert tserve._serve_loop(trec, inp, out) == 0
+    lines = out.getvalue().strip().split("\n")
+    want = ",".join(map(str, trec.from_histories([h])[0].tolist()))
+    assert lines[0] == f"{line}\t{want}"
+    assert not set(h) & {int(x) for x in want.split(",")}
+    assert lines[1].startswith("!err ValueError")
+    assert lines[2] == "!ok step None"
+    assert lines[3].startswith("!err NotImplementedError")
+    assert len(lines) == 4                     # nothing served after !quit
