@@ -11,6 +11,10 @@ The layout is arec's, key for key and shape for shape:
 never split into nn.LSTM's parameters. numpy arrays are copied, so the two
 sides never share memory; torch leaves are moved to `device` (no copy when
 they are already there).
+
+`train_state_from_arec` carries a whole arec `TrainState` across (params,
+optimizer state, lr scale, step), so a run can continue mid-training on
+either side from the same state.
 """
 
 from __future__ import annotations
@@ -41,3 +45,31 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy().copy()
+
+
+def train_state_from_arec(state, device="cpu"):
+    """arec's TrainState, as numpy (`jax.tree.map(np.asarray, state)`) →
+    the port's `arec_torch.train.step.TrainState` on `device`.
+
+    arec's opt_state is optax's `inject_hyperparams` state: `count`,
+    `hyperparams["learning_rate"]` and `inner_state`, whose first entry is
+    `ScaleByRssState(sum_of_squares)` (adagrad), `ScaleByAdamState(count,
+    mu, nu)` (adam) or empty (sgd). Read by field name: optax itself is not
+    imported here."""
+    from arec_torch.train.step import TrainState
+
+    opt = state.opt_state
+    inner = opt.inner_state[0]
+    opt_state = {"count": to_torch(opt.count, device),
+                 "learning_rate": to_torch(
+                     opt.hyperparams["learning_rate"], device)}
+    if hasattr(inner, "sum_of_squares"):
+        opt_state["sum_of_squares"] = to_torch(inner.sum_of_squares, device)
+    elif hasattr(inner, "mu"):
+        opt_state.update(mu=to_torch(inner.mu, device),
+                         nu=to_torch(inner.nu, device),
+                         adam_count=to_torch(inner.count, device))
+    return TrainState(params=to_torch(state.params, device),
+                      opt_state=opt_state,
+                      lr_scale=to_torch(state.lr_scale, device),
+                      step=to_torch(state.step, device))

@@ -8,8 +8,9 @@
 //                                                  step is an exact no-op)
 // with (h, c) carried in from (h0, c0), so segment n's final state can seed
 // segment n+1. Outputs: h_all [L, B, H] and cT [B, H], both f32. The
-// shift-by-one h_prev/c_prev residuals of the TPU kernel exist for the
-// backward sweep and come with the training slice.
+// training entry `lstm_scan_fwd_resid` also writes the backward sweep's
+// residuals hp, cp [L, B, H]: the state BEFORE step t (pad steps
+// included), as the TPU kernel's hp_out/cp_out do.
 //
 // What bounds it: the L steps are dependent, so the kernel is latency-bound.
 // Its bytes are xw in ([L, B, 4H] f32) and h_all out ([L, B, H] f32); its
@@ -69,7 +70,7 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <typename WT, int BT, bool WH_SMEM>
+template <typename WT, int BT, bool WH_SMEM, bool RESID>
 __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xw,    // [L, B, 4H]
                                      const WT* __restrict__ wh,       // [H, 4H]
                                      const float* __restrict__ mask,  // [B, L]
@@ -77,6 +78,8 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xw,    // [L, B, 
                                      const float* __restrict__ c0,    // [B, H]
                                      float* __restrict__ h_all,       // [L, B, H]
                                      float* __restrict__ cT,          // [B, H]
+                                     float* __restrict__ hp,          // [L, B, H] if RESID
+                                     float* __restrict__ cp,          // [L, B, H] if RESID
                                      int L, int B, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
@@ -159,7 +162,12 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xw,    // [L, B, 
       h_s[idx] = h;
       c_s[idx] = c;
       hq_s[idx] = round_to<WT>(h);
-      h_all[(static_cast<size_t>(t) * B + b0 + r) * H + j] = h;
+      const size_t out = (static_cast<size_t>(t) * B + b0 + r) * H + j;
+      h_all[out] = h;
+      if constexpr (RESID) {
+        hp[out] = h_old;
+        cp[out] = c_old;
+      }
     }
     __syncthreads();
   }
@@ -171,11 +179,12 @@ __global__ void lstm_scan_fwd_kernel(const float* __restrict__ xw,    // [L, B, 
   }
 }
 
-template <typename WT, int BT, bool WH_SMEM>
+template <typename WT, int BT, bool WH_SMEM, bool RESID>
 cudaError_t launch(const float* xw, const WT* wh, const float* mask,
                    const float* h0, const float* c0, float* h_all, float* cT,
-                   int L, int B, int H, size_t smem, cudaStream_t stream) {
-  auto kernel = lstm_scan_fwd_kernel<WT, BT, WH_SMEM>;
+                   float* hp, float* cp, int L, int B, int H, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = lstm_scan_fwd_kernel<WT, BT, WH_SMEM, RESID>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -185,16 +194,16 @@ cudaError_t launch(const float* xw, const WT* wh, const float* mask,
   const int G = 4 * H;
   const int threads = G < 1024 ? ((G + 31) / 32) * 32 : 1024;
   const int grid = (B + BT - 1) / BT;
-  kernel<<<grid, threads, smem, stream>>>(xw, wh, mask, h0, c0, h_all, cT, L,
-                                          B, H);
+  kernel<<<grid, threads, smem, stream>>>(xw, wh, mask, h0, c0, h_all, cT, hp,
+                                          cp, L, B, H);
   return cudaGetLastError();
 }
 
-template <typename WT, bool WH_SMEM>
+template <typename WT, bool WH_SMEM, bool RESID>
 cudaError_t dispatch_bt(int bt, const void* xw, const void* wh,
                         const void* mask, const void* h0, const void* c0,
-                        void* h_all, void* cT, int L, int B, int H,
-                        size_t smem, cudaStream_t s) {
+                        void* h_all, void* cT, void* hp, void* cp, int L,
+                        int B, int H, size_t smem, cudaStream_t s) {
   const float* x = static_cast<const float*>(xw);
   const WT* w = static_cast<const WT*>(wh);
   const float* m = static_cast<const float*>(mask);
@@ -202,24 +211,21 @@ cudaError_t dispatch_bt(int bt, const void* xw, const void* wh,
   const float* ci = static_cast<const float*>(c0);
   float* ho = static_cast<float*>(h_all);
   float* co = static_cast<float*>(cT);
+  float* hr = static_cast<float*>(hp);
+  float* cr = static_cast<float*>(cp);
   switch (bt) {
-    case 1: return launch<WT, 1, WH_SMEM>(x, w, m, hi, ci, ho, co, L, B, H, smem, s);
-    case 2: return launch<WT, 2, WH_SMEM>(x, w, m, hi, ci, ho, co, L, B, H, smem, s);
-    case 4: return launch<WT, 4, WH_SMEM>(x, w, m, hi, ci, ho, co, L, B, H, smem, s);
-    case 8: return launch<WT, 8, WH_SMEM>(x, w, m, hi, ci, ho, co, L, B, H, smem, s);
+    case 1: return launch<WT, 1, WH_SMEM, RESID>(x, w, m, hi, ci, ho, co, hr, cr, L, B, H, smem, s);
+    case 2: return launch<WT, 2, WH_SMEM, RESID>(x, w, m, hi, ci, ho, co, hr, cr, L, B, H, smem, s);
+    case 4: return launch<WT, 4, WH_SMEM, RESID>(x, w, m, hi, ci, ho, co, hr, cr, L, B, H, smem, s);
+    case 8: return launch<WT, 8, WH_SMEM, RESID>(x, w, m, hi, ci, ho, co, hr, cr, L, B, H, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Every pointer is a device pointer
-// to a contiguous tensor; `stream` is the caller's cudaStream_t. Returns the
-// cudaError_t of the launch (0 = launched).
-extern "C" int lstm_scan_fwd(const void* xw, const void* wh, const void* mask,
-                             const void* h0, const void* c0, void* h_all,
-                             void* cT, int L, int B, int H, int wh_bf16,
-                             int bt, int wh_in_smem, void* stream) {
+template <bool RESID>
+int run(const void* xw, const void* wh, const void* mask, const void* h0,
+        const void* c0, void* h_all, void* cT, void* hp, void* cp, int L,
+        int B, int H, int wh_bf16, int bt, int wh_in_smem, void* stream) {
   if (L < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
   const size_t G = 4 * static_cast<size_t>(H);
   const size_t state = static_cast<size_t>(bt) * (3 * H + G) * sizeof(float);
@@ -228,11 +234,37 @@ extern "C" int lstm_scan_fwd(const void* xw, const void* wh, const void* mask,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (wh_bf16) {
-    e = wh_in_smem ? dispatch_bt<__nv_bfloat16, true>(bt, xw, wh, mask, h0, c0, h_all, cT, L, B, H, smem, s)
-                   : dispatch_bt<__nv_bfloat16, false>(bt, xw, wh, mask, h0, c0, h_all, cT, L, B, H, smem, s);
+    e = wh_in_smem ? dispatch_bt<__nv_bfloat16, true, RESID>(bt, xw, wh, mask, h0, c0, h_all, cT, hp, cp, L, B, H, smem, s)
+                   : dispatch_bt<__nv_bfloat16, false, RESID>(bt, xw, wh, mask, h0, c0, h_all, cT, hp, cp, L, B, H, smem, s);
   } else {
-    e = wh_in_smem ? dispatch_bt<float, true>(bt, xw, wh, mask, h0, c0, h_all, cT, L, B, H, smem, s)
-                   : dispatch_bt<float, false>(bt, xw, wh, mask, h0, c0, h_all, cT, L, B, H, smem, s);
+    e = wh_in_smem ? dispatch_bt<float, true, RESID>(bt, xw, wh, mask, h0, c0, h_all, cT, hp, cp, L, B, H, smem, s)
+                   : dispatch_bt<float, false, RESID>(bt, xw, wh, mask, h0, c0, h_all, cT, hp, cp, L, B, H, smem, s);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Every pointer is a device
+// pointer to a contiguous tensor; `stream` is the caller's cudaStream_t.
+// Each returns the cudaError_t of the launch (0 = launched).
+//
+// Serving: h_all and cT only.
+extern "C" int lstm_scan_fwd(const void* xw, const void* wh, const void* mask,
+                             const void* h0, const void* c0, void* h_all,
+                             void* cT, int L, int B, int H, int wh_bf16,
+                             int bt, int wh_in_smem, void* stream) {
+  return run<false>(xw, wh, mask, h0, c0, h_all, cT, nullptr, nullptr, L, B,
+                    H, wh_bf16, bt, wh_in_smem, stream);
+}
+
+// Training: also the residuals hp, cp [L, B, H] for lstm_scan_bwd.
+extern "C" int lstm_scan_fwd_resid(const void* xw, const void* wh,
+                                   const void* mask, const void* h0,
+                                   const void* c0, void* h_all, void* cT,
+                                   void* hp, void* cp, int L, int B, int H,
+                                   int wh_bf16, int bt, int wh_in_smem,
+                                   void* stream) {
+  return run<true>(xw, wh, mask, h0, c0, h_all, cT, hp, cp, L, B, H, wh_bf16,
+                   bt, wh_in_smem, stream);
 }

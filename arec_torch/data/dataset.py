@@ -1,6 +1,7 @@
-"""Prepared-dataset container: the port's copy of the container and
-prep tail of `arec/data/dataset.py` (`PreparedDataset`,
-`build_prepared`). The batch iterators come with the training slice.
+"""Prepared-dataset container and batch iterators: the port's copy of
+`arec/data/dataset.py` (`PreparedDataset`, `build_prepared`, `seq_batches`,
+`eval_batches`). The iterators yield the same numpy arrays as arec's for
+the same (seed, epoch, host). `mf_batches` comes with the MF slice.
 
 Split protocol (SURVEY.md §3.4): interactions are time-sorted per user; the
 LAST interaction of each user (by time, ties by original order) is held out
@@ -11,9 +12,11 @@ interactions contribute no validation positive.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Iterator
 
 import numpy as np
 
+from arec_torch import native
 from arec_torch.data.schema import AttributeData, EntitySchema
 
 
@@ -168,3 +171,71 @@ def _padded_hist(train_users, train_items, num_users: int, max_hist: int):
     pos = np.arange(len(train_users)) - starts[train_users]
     keep = pos >= (lengths[train_users] - max_hist)
     return _pad_rows(train_users[keep], train_items[keep], num_users)
+
+
+# --------------------------------------------------------------------------
+# Batch iterators
+# --------------------------------------------------------------------------
+
+def _epoch_perm(n: int, seed: int, epoch: int) -> np.ndarray:
+    return np.random.default_rng(
+        np.random.SeedSequence([seed, epoch])).permutation(n)
+
+
+def seq_batches(ds: PreparedDataset, batch_size: int, max_seq_len: int,
+                seed: int, epoch: int, host_id: int = 0,
+                num_hosts: int = 1) -> Iterator[dict[str, np.ndarray]]:
+    """Sequence training batches: for each user with ≥2 train interactions
+    (in a deterministic per-(seed, epoch) order), inputs are items[:-1] and
+    targets items[1:] (next-item prediction), truncated to the most recent
+    `max_seq_len` steps and left-padded. Fixed shapes: inputs/targets int32
+    [B, L] with pad id = num_items, mask float32 [B, L], user int32 [B]."""
+    users = np.flatnonzero(ds.hist_lengths >= 2)
+    perm = users[_epoch_perm(len(users), seed, epoch)][host_id::num_hosts]
+    pad = ds.num_items
+    n = (len(perm) // batch_size) * batch_size
+    for s in range(0, max(n, batch_size if len(perm) else 0), batch_size):
+        idx = perm[s : s + batch_size]
+        if len(idx) == 0:
+            return
+        if len(idx) < batch_size:
+            idx = np.concatenate([idx, perm[: batch_size - len(idx)]])
+        idx = idx.astype(np.int32)
+        inputs, targets, mask = native.pack_train_sequences(
+            ds.hist_items, ds.hist_lengths, idx, max_seq_len, pad)
+        yield {"user": idx, "inputs": inputs,
+               "targets": targets, "mask": mask}
+
+
+def eval_batches(ds: PreparedDataset, batch_size: int, max_seq_len: int = 0,
+                 host_id: int = 0, num_hosts: int = 1
+                 ) -> Iterator[dict[str, np.ndarray]]:
+    """Validation batches: one row per held-out (user, positive), fixed
+    shapes; the trailing partial batch is padded with repeats and flagged by
+    `valid`. With max_seq_len > 0 also the user's train history packed to L
+    (inputs, mask). Host h takes the rows h::num_hosts, and every host
+    yields the same number of batches."""
+    nv = len(ds.valid_users)
+    pad_item = ds.num_items
+    rows = np.arange(nv)[host_id::num_hosts]
+    per_host = -(-nv // num_hosts)
+    n_batches = max(1, -(-per_host // batch_size)) if nv else 0
+    for b in range(n_batches):
+        idx = rows[b * batch_size : (b + 1) * batch_size]
+        valid = np.ones(batch_size, np.float32)
+        if len(idx) < batch_size:
+            valid[len(idx):] = 0.0
+            idx = np.concatenate([idx, np.zeros(batch_size - len(idx),
+                                                np.int64)])
+        batch = {
+            "user": ds.valid_users[idx],
+            "pos_item": ds.valid_items[idx],
+            "valid": valid,
+        }
+        if max_seq_len:
+            inputs, mask = native.pack_eval_sequences(
+                ds.hist_items, ds.hist_lengths,
+                batch["user"].astype(np.int32), max_seq_len, pad_item)
+            batch["inputs"] = inputs
+            batch["mask"] = mask
+        yield batch

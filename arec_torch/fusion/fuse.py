@@ -7,7 +7,8 @@ Two modes:
           no parameters (see EncoderSpec.needs_proj).
   sum:    elementwise sum of per-attribute embeddings (all dim D).
 
-Dropout belongs to training and comes with the training slice.
+Training-time dropout (keep_prob < 1) draws its mask from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -41,20 +42,29 @@ def init_fusion(gen: torch.Generator, n_attrs: int, dim: int,
 
 
 def apply_fusion(params: dict | None, per_attr: list[torch.Tensor], kind: str,
-                 nonlinear: bool, act_dtype=None) -> torch.Tensor:
+                 nonlinear: bool, act_dtype=None, dropout_gen=None,
+                 keep_prob: float = 1.0) -> torch.Tensor:
     """act_dtype: arec's train-path activation dtype; when set, the
-    projection weights are cast to it so the matmul runs in that dtype."""
+    projection weights are cast to it so the matmul runs in that dtype.
+    dropout_gen/keep_prob: inverted dropout on the fused output, the keep
+    mask drawn from `dropout_gen` (on the output's device)."""
     cast = (lambda a: a.to(act_dtype)) if act_dtype is not None else (
         lambda a: a)
     if kind == "sum":
-        return sum(per_attr[1:], start=per_attr[0])
-    if kind != "concat":
+        out = sum(per_attr[1:], start=per_attr[0])
+    elif kind == "concat":
+        x = per_attr[0] if len(per_attr) == 1 else torch.cat(per_attr, -1)
+        if params is None:
+            out = x  # identity: single attribute, linear
+        else:
+            out = x @ cast(params["w1"]) + cast(params["b1"])
+            if nonlinear:
+                out = torch.tanh(out)
+                out = out @ cast(params["w2"]) + cast(params["b2"])
+    else:
         raise ValueError(f"unknown fusion kind {kind!r}")
-    x = per_attr[0] if len(per_attr) == 1 else torch.cat(per_attr, -1)
-    if params is None:
-        return x  # identity: single attribute, linear
-    h = x @ cast(params["w1"]) + cast(params["b1"])
-    if nonlinear:
-        h = torch.tanh(h)
-        h = h @ cast(params["w2"]) + cast(params["b2"])
-    return h
+    if dropout_gen is not None and keep_prob < 1.0:
+        keep = torch.rand(out.shape, generator=dropout_gen,
+                          device=out.device) < keep_prob
+        out = torch.where(keep, out / keep_prob, 0.0)
+    return out

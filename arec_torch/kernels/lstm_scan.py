@@ -1,18 +1,27 @@
-"""LSTM layer scan (port of `arec/kernels/lstm_scan.py`, forward).
+"""LSTM layer scan (port of `arec/kernels/lstm_scan.py`).
 
-`lstm_layer` is the forward contract of arec's `lstm_layer_pallas`: one
-recurrent layer over time-major xw = x·Wx + b [L, B, 4H], the recurrent
-weight Wh [H, 4H], the left-padding mask [B, L] and the carried-in state
-(h0, c0) [B, H] → (h_all [L, B, H], cT [B, H]), all f32. Per step:
+`lstm_layer` is the contract of arec's `lstm_layer_pallas`: one recurrent
+layer over time-major xw = x·Wx + b [L, B, 4H], the recurrent weight Wh
+[H, 4H], the left-padding mask [B, L] and the carried-in state (h0, c0)
+[B, H] → (h_all [L, B, H], cT [B, H]), all f32. Per step:
 gates = xw_t + cast(h, dtype)·cast(Wh, dtype) summed in f32, gate order
 i|f|g|o, and h, c = m·new + (1−m)·old, so pad steps are exact no-ops.
 
-For CUDA tensors it launches the hand-written kernel
-`arec_torch/csrc/lstm_scan_fwd.cu` (sm_90a) or raises; the plain PyTorch
-version `lstm_layer_plain` is taken only for CPU tensors. The TPU
-workarounds (the [L, B, H] mask broadcast, `_pick_tiles`,
-`padded_seq_len`) do not exist here: the kernel reads the [B, L] mask and
-takes any L and B. The backward kernel comes with the training slice.
+Gradients flow to xw, Wh, h0 and c0 through both h_all and cT (arec's
+custom VJP), so a segmented scan has exactly the gradient of the one-pass
+scan. When autograd records (grad mode on and an input requires grad) the
+layer runs as `LSTMLayer`, a `torch.autograd.Function`: its forward is the
+training launch of `csrc/lstm_scan_fwd.cu` (which also writes the residuals
+hp, cp: the state before each step) and its backward is
+`csrc/lstm_scan_bwd.cu` (the reverse sweep plus the dWh reduction).
+Otherwise (serving, `inference_mode`) the serving launch writes h_all and
+cT only.
+
+For CUDA tensors the wrappers launch the hand-written kernels (sm_90a) or
+raise; the plain PyTorch versions `lstm_layer_plain` and
+`lstm_layer_bwd_plain` are taken only for CPU tensors. The TPU workarounds
+(the [L, B, H] mask broadcast, `_pick_tiles`, `padded_seq_len`) do not
+exist here: the kernels read the [B, L] mask and take any L and B.
 """
 
 from __future__ import annotations
@@ -24,18 +33,28 @@ import torch
 from arec_torch.kernels import _build
 
 KERNEL = "lstm_scan_fwd"
+KERNEL_BWD = "lstm_scan_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
 _BT_CHOICES = (1, 2, 4, 8)
+_DWH_SPLITS = 8    # row ranges of lstm_scan_bwd's dWh pass (RS there)
+# f32 words of shared memory per batch row of a CTA: h, c, cast h [H] and
+# the gates [4H] (forward); cast h, dh, dc, dh_skip [H] and the gates [4H]
+# (backward)
+_STATE_WORDS = {KERNEL: 7, KERNEL_BWD: 8}
 
 
-def lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16):
-    """Plain PyTorch version of the kernel: the same arithmetic, one step
-    at a time."""
+def lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
+                     residuals: bool = False):
+    """Plain PyTorch version of the forward kernel: the same arithmetic, one
+    step at a time. residuals=True also returns hp, cp [L, B, H], the state
+    before each step (the training launch's extra outputs)."""
     H = wh.shape[0]
     w = wh.to(dtype).float()
     h, c = h0, c0
-    hs = []
+    hs, hps, cps = [], [], []
     for t in range(xw_tm.shape[0]):
+        hps.append(h)
+        cps.append(c)
         gates = xw_tm[t] + h.to(dtype).float() @ w
         i, f, g, o = gates.split(H, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -44,33 +63,69 @@ def lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16):
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
         hs.append(h)
+    if residuals:
+        return torch.stack(hs), c, torch.stack(hps), torch.stack(cps)
     return torch.stack(hs), c
 
 
-def _fn():
-    fn = _build.load(KERNEL).lstm_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+def lstm_layer_bwd_plain(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
+                         dtype=torch.bfloat16):
+    """Plain PyTorch version of the backward kernel (arec's `_backward`):
+    reverse sweep with the gates recomputed from (xw, cast(h_prev)) →
+    (dxw [L, B, 4H], dWh [H, 4H], dh0 [B, H], dc0 [B, H]), all f32."""
+    L, B, G = xw_tm.shape
+    H = G // 4
+    w = wh.to(dtype).float()
+    dh = torch.zeros(B, H, dtype=torch.float32, device=xw_tm.device)
+    dc = dcT
+    dwh = torch.zeros(H, G, dtype=torch.float32, device=xw_tm.device)
+    dxw = torch.empty_like(xw_tm)
+    for t in range(L - 1, -1, -1):
+        hq = hp[t].to(dtype).float()
+        gates = xw_tm[t] + hq @ w
+        si = torch.sigmoid(gates[:, :H])
+        sf = torch.sigmoid(gates[:, H:2 * H])
+        tg = torch.tanh(gates[:, 2 * H:3 * H])
+        so = torch.sigmoid(gates[:, 3 * H:])
+        c_new = sf * cp[t] + si * tg
+        tc = torch.tanh(c_new)
+        m = mask_bm[:, t, None]
+        dh_total = dh_out[t] + dh
+        dh_new = m * dh_total
+        dh_skip = (1.0 - m) * dh_total
+        dc_new = m * dc
+        dc_skip = (1.0 - m) * dc
+        do_pre = dh_new * tc * so * (1.0 - so)
+        dc_new = dc_new + dh_new * so * (1.0 - tc * tc)
+        df_pre = dc_new * cp[t] * sf * (1.0 - sf)
+        di_pre = dc_new * tg * si * (1.0 - si)
+        dg_pre = dc_new * si * (1.0 - tg * tg)
+        dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=1)
+        dxw[t] = dgates
+        dgq = dgates.to(dtype).float()
+        dwh += hq.T @ dgq
+        dh = dgq @ w.T + dh_skip
+        dc = dc_new * sf + dc_skip
+    return dxw, dwh, dh, dc
+
+
+def _fn(source: str, symbol: str, n_ptr: int):
+    """Entry point `symbol` of kernel library `source`: n_ptr pointers, six
+    ints, the stream."""
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(xw_tm, wh, mask_bm, h0, c0, dtype):
+def _check(kernel: str, dtype, xw_tm, tensors: dict):
+    """Raise unless every tensor is contiguous, on xw_tm's device, with the
+    shape and dtype the kernel takes: {name: (tensor, shape, dtype)}."""
     if dtype not in _DTYPES:
-        raise ValueError(f"lstm_scan_fwd takes dtype float32 or bfloat16, "
+        raise ValueError(f"{kernel} takes dtype float32 or bfloat16, "
                          f"not {dtype}")
-    if xw_tm.dim() != 3 or xw_tm.shape[2] % 4:
-        raise ValueError(f"xw_tm must be [L, B, 4H], got {tuple(xw_tm.shape)}")
-    L, B, G = xw_tm.shape
-    H = G // 4
-    if L < 1 or B < 1:
-        raise ValueError(f"lstm_scan_fwd needs L, B >= 1, got L={L}, B={B}")
-    want = {"xw_tm": (xw_tm, (L, B, G), torch.float32),
-            "wh": (wh, (H, G), dtype),
-            "mask_bm": (mask_bm, (B, L), torch.float32),
-            "h0": (h0, (B, H), torch.float32),
-            "c0": (c0, (B, H), torch.float32)}
-    for name, (t, shape, dt) in want.items():
+    for name, (t, shape, dt) in tensors.items():
         if t.device != xw_tm.device:
             raise ValueError(f"{name} is on {t.device}, xw_tm on "
                              f"{xw_tm.device}")
@@ -82,7 +137,17 @@ def _check(xw_tm, wh, mask_bm, h0, c0, dtype):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_config(B: int, H: int, dtype, device) -> tuple[int, bool]:
+def _dims(kernel: str, xw_tm):
+    if xw_tm.dim() != 3 or xw_tm.shape[2] % 4:
+        raise ValueError(f"xw_tm must be [L, B, 4H], got {tuple(xw_tm.shape)}")
+    L, B, G = xw_tm.shape
+    if L < 1 or B < 1:
+        raise ValueError(f"{kernel} needs L, B >= 1, got L={L}, B={B}")
+    return L, B, G, G // 4
+
+
+def _launch_config(kernel: str, B: int, H: int, dtype,
+                   device) -> tuple[int, bool]:
     """(rows per CTA, Wh resident in shared memory): the fewest rows per
     CTA that keep the grid within one wave of SMs, and Wh in shared memory
     when it fits beside the state tiles."""
@@ -90,53 +155,148 @@ def _launch_config(B: int, H: int, dtype, device) -> tuple[int, bool]:
     bt = next((b for b in _BT_CHOICES
                if -(-B // b) <= props.multi_processor_count), _BT_CHOICES[-1])
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    state = bt * 7 * H * 4               # h, c, cast h [BT, H]; gates [BT, 4H]
+    state = bt * _STATE_WORDS[kernel] * H * 4
     if state > limit:
-        raise ValueError(f"lstm_scan_fwd: H={H} needs {state} bytes of shared "
+        raise ValueError(f"{kernel}: H={H} needs {state} bytes of shared "
                          f"memory for its state, over the {limit} a block has")
     wh_bytes = 4 * H * H * (2 if dtype == torch.bfloat16 else 4)
     return bt, state + wh_bytes <= limit
 
 
-def lstm_layer(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16):
-    """One recurrent layer → (h_all [L, B, H], cT [B, H]). CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
-    if xw_tm.device.type == "cpu":
-        return lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype)
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _device_of(xw_tm, kernel: str):
     if xw_tm.device.type != "cuda":
-        raise ValueError(f"lstm_layer runs on cuda or cpu, not "
-                         f"{xw_tm.device}")
-    wh = wh.to(dtype)
-    _check(xw_tm, wh, mask_bm, h0, c0, dtype)
-    L, B, G = xw_tm.shape
-    H = G // 4
-    bt, wh_in_smem = _launch_config(B, H, dtype, xw_tm.device)
-    h_all = torch.empty((L, B, H), dtype=torch.float32, device=xw_tm.device)
-    cT = torch.empty((B, H), dtype=torch.float32, device=xw_tm.device)
-    stream = torch.cuda.current_stream(xw_tm.device).cuda_stream
-    with torch.cuda.device(xw_tm.device):
-        rc = _fn()(xw_tm.data_ptr(), wh.data_ptr(), mask_bm.data_ptr(),
-                   h0.data_ptr(), c0.data_ptr(), h_all.data_ptr(),
-                   cT.data_ptr(), L, B, H, int(dtype == torch.bfloat16), bt,
-                   int(wh_in_smem), stream)
+        raise ValueError(f"{kernel} runs on cuda, not {xw_tm.device}")
+    return xw_tm.device
+
+
+def lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
+                  residuals: bool = False):
+    """The forward kernel on CUDA tensors → (h_all, cT), and with
+    residuals=True also (hp, cp). Raises on anything it does not take."""
+    dev = _device_of(xw_tm, KERNEL)
+    wh = wh.detach().to(dtype)
+    L, B, G, H = _dims(KERNEL, xw_tm)
+    f32 = torch.float32
+    _check(KERNEL, dtype, xw_tm, {
+        "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
+        "mask_bm": (mask_bm, (B, L), f32), "h0": (h0, (B, H), f32),
+        "c0": (c0, (B, H), f32)})
+    bt, wh_in_smem = _launch_config(KERNEL, B, H, dtype, dev)
+    outs = [torch.empty((L, B, H), dtype=f32, device=dev),
+            torch.empty((B, H), dtype=f32, device=dev)]
+    if residuals:
+        outs += [torch.empty((L, B, H), dtype=f32, device=dev)
+                 for _ in range(2)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        symbol = "lstm_scan_fwd_resid" if residuals else "lstm_scan_fwd"
+        rc = _fn(KERNEL, symbol, 5 + len(outs))(
+            *_ptrs(xw_tm, wh, mask_bm, h0, c0, *outs), L, B, H,
+            int(dtype == torch.bfloat16), bt, int(wh_in_smem), stream)
     if rc != 0:
         raise RuntimeError(f"lstm_scan_fwd launch failed: CUDA error {rc}")
     lstm_layer.launches += 1
-    return h_all, cT
+    return tuple(outs)
 
 
-lstm_layer.launches = 0   # kernel launches since the caller last reset it
+def lstm_layer_bwd(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
+                   dtype=torch.bfloat16):
+    """The backward kernel on CUDA tensors → (dxw, dWh, dh0, dc0), the
+    contract of `lstm_layer_bwd_plain`. Raises on anything it does not
+    take."""
+    dev = _device_of(xw_tm, KERNEL_BWD)
+    wh = wh.detach().to(dtype)
+    L, B, G, H = _dims(KERNEL_BWD, xw_tm)
+    f32 = torch.float32
+    _check(KERNEL_BWD, dtype, xw_tm, {
+        "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
+        "mask_bm": (mask_bm, (B, L), f32), "hp": (hp, (L, B, H), f32),
+        "cp": (cp, (L, B, H), f32), "dh_out": (dh_out, (L, B, H), f32),
+        "dcT": (dcT, (B, H), f32)})
+    bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, dtype, dev)
+    dxw = torch.empty((L, B, G), dtype=f32, device=dev)
+    dwh = torch.empty((H, G), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H), dtype=f32, device=dev)
+    dc0 = torch.empty((B, H), dtype=f32, device=dev)
+    part = torch.empty((_DWH_SPLITS, H, G), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _fn(KERNEL_BWD, "lstm_scan_bwd", 12)(
+            *_ptrs(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT, dxw, dwh, dh0,
+                   dc0, part), L, B, H, int(dtype == torch.bfloat16), bt,
+            int(wh_in_smem), stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_scan_bwd launch failed: CUDA error {rc}")
+    lstm_layer_bwd.launches += 1
+    return dxw, dwh, dh0, dc0
+
+
+class LSTMLayer(torch.autograd.Function):
+    """One layer with arec's custom VJP: gradients to xw, Wh, h0 and c0
+    through h_all and cT (mask and dtype take none)."""
+
+    @staticmethod
+    def forward(ctx, xw_tm, wh, mask_bm, h0, c0, dtype):
+        if xw_tm.device.type == "cpu":
+            h_all, cT, hp, cp = lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0,
+                                                 dtype, residuals=True)
+        else:
+            h_all, cT, hp, cp = lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0,
+                                              dtype, residuals=True)
+        ctx.save_for_backward(xw_tm, wh, mask_bm, hp, cp)
+        ctx.dtype = dtype
+        return h_all, cT
+
+    @staticmethod
+    def backward(ctx, dh_out, dcT):
+        xw_tm, wh, mask_bm, hp, cp = ctx.saved_tensors
+        # autograd hands over zeros for an unused output (materialized
+        # grads); they arrive contiguous for the kernel
+        dh_out, dcT = dh_out.contiguous(), dcT.contiguous()
+        bwd = (lstm_layer_bwd_plain if xw_tm.device.type == "cpu"
+               else lstm_layer_bwd)
+        dxw, dwh, dh0, dc0 = bwd(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
+                                 ctx.dtype)
+        return dxw, dwh.to(wh.dtype), None, dh0, dc0, None
+
+
+def lstm_layer(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16):
+    """One recurrent layer → (h_all [L, B, H], cT [B, H]). Differentiable
+    (through `LSTMLayer`) when autograd records; CPU tensors take the plain
+    versions, CUDA tensors launch the kernels or raise."""
+    if xw_tm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_layer runs on cuda or cpu, not "
+                         f"{xw_tm.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xw_tm, wh, h0, c0)):
+        return LSTMLayer.apply(xw_tm, wh, mask_bm, h0, c0, dtype)
+    if xw_tm.device.type == "cpu":
+        return lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype)
+    return lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0, dtype)
+
+
+lstm_layer.launches = 0       # lstm_scan_fwd launches since the last reset
+lstm_layer_bwd.launches = 0   # lstm_scan_bwd launches since the last reset
 
 
 def lstm_scan(layers: list[dict], x, mask, dtype=torch.bfloat16,
               states: list | None = None, return_states: bool = False,
-              time_major: bool = False):
+              time_major: bool = False, dropout_gen=None,
+              keep_prob: float = 1.0):
     """Counterpart of arec's `pallas_lstm_scan` (and a drop-in for the
     plain `rnn_scan` with cell="lstm"): x [B, L, D], mask [B, L] → top-layer
     hidden states [B, L, H]; time_major: x [L, B, D], mask [L, B] →
     [L, B, H]. `states`: optional per-layer (h0, c0) carries;
-    `return_states=True` also returns the per-layer final (hT, cT)."""
-    from arec_torch.models.seq import input_projection
+    `return_states=True` also returns the per-layer final (hT, cT).
+    `dropout_gen`/`keep_prob`: per-layer output dropout applied outside the
+    kernel (`output_dropout`, layer li drawing from
+    `fold_in(dropout_gen, li)`); the carries stay undropped."""
+    from arec_torch.models.seq import input_projection, output_dropout
+    from arec_torch.rng import fold_in
 
     b = x.shape[1] if time_major else x.shape[0]
     mask_bm = (mask.T if time_major else mask).float().contiguous()
@@ -153,8 +313,11 @@ def lstm_scan(layers: list[dict], x, mask, dtype=torch.bfloat16,
         xw_tm = xw if time_major else xw.transpose(0, 1)
         h_all, cT = lstm_layer(xw_tm.contiguous(), p["w"][d_in:], mask_bm,
                                h0.contiguous(), c0.contiguous(), dtype)
-        new_states.append((h_all[-1], cT))
+        new_states.append((h_all[-1], cT))                 # pre-dropout
         h = h_all if time_major else h_all.transpose(0, 1)
+        if dropout_gen is not None:
+            h = output_dropout(h, fold_in(dropout_gen, li, h.device),
+                               keep_prob)
     if return_states:
         return h, new_states
     return h

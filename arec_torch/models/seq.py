@@ -1,5 +1,5 @@
 """LSTM/GRU sequence-recommendation model family (port of
-`arec/models/seq.py`, serving half).
+`arec/models/seq.py`).
 
 Next-item prediction over a user's time-ordered item sequence: the input
 at step t is the fused attribute embedding of item t (optionally + the user
@@ -15,8 +15,12 @@ CUDA kernel for CUDA tensors. The same (xw, wh) layout serves both: the
 input projection x·Wx + b for all steps is one matmul outside the scan and
 only h·Wh is sequential.
 
-`seq_loss`, dropout and the train-path segments come with the training
-slice.
+Training: `seq_loss` is the sampled-softmax CE over every valid position,
+with TF1 DropoutWrapper-style output dropout and fusion dropout drawn from
+`torch.Generator`s (`arec_torch.rng`), and long histories trained in
+`train_segments` carried-(h, c) segments under `torch.utils.checkpoint`.
+arec's `_pad_time_for_scan` is not ported: it pads for the TPU kernel's
+time tiling, which the CUDA kernels do not have.
 """
 
 from __future__ import annotations
@@ -25,11 +29,15 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from arec_torch.config import Config
 from arec_torch.data.schema import EntitySchema
+from arec_torch.losses.losses import sampled_softmax_loss
+from arec_torch.rng import fold_in, generator, split
 from arec_torch.tables.engine import (
-    EncoderSpec, encode, encode_all_items_with_bias, init_encoder, mm_f32,
+    EncoderSpec, dense_lookup, encode, encode_all_items_with_bias,
+    encode_with_bias, init_encoder, mm_f32,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,6 +63,11 @@ class SeqSpec:
     @property
     def dim(self) -> int:
         return self.item_in.dim
+
+    @property
+    def pack_len(self) -> int:
+        """Total history length per training example (data-packing width)."""
+        return self.max_seq_len * self.train_segments
 
     @property
     def vocab(self) -> int:
@@ -165,44 +178,69 @@ def gru_step(wh, xw_t, h, c, dtype):
 
 
 def layer_scan(p: dict, cell: str, x: torch.Tensor, mask: torch.Tensor,
-               dtype, state: tuple | None = None, return_state: bool = False):
-    """One recurrent layer: x [B, L, D], mask [B, L] → h_all [B, L, H].
-    Masked state updates make pad steps exact no-ops; `state` is an
-    optional (h0, c0) carry-in and return_state=True also returns the
-    final (hT, cT)."""
+               dtype, state: tuple | None = None, return_state: bool = False,
+               time_major: bool = False):
+    """One recurrent layer: x [B, L, D], mask [B, L] → h_all [B, L, H]
+    (time_major: x [L, B, D], mask [L, B] → [L, B, H]). Masked state
+    updates make pad steps exact no-ops; `state` is an optional (h0, c0)
+    carry-in and return_state=True also returns the final (hT, cT).
+    Gradients flow through the carry, so a segmented scan is exactly the
+    unsegmented one."""
+    b = x.shape[1] if time_major else x.shape[0]
     d = p["w"].shape[0] - x.shape[-1]
     wh = p["w"][x.shape[-1]:]
-    xw = input_projection(p, x, dtype)                    # [B, L, G·H]
+    xw = input_projection(p, x, dtype)                    # [..., G·H]
     step_fn = lstm_step if cell == "lstm" else gru_step
     if state is None:
-        zeros = torch.zeros(x.shape[0], d, device=x.device)
+        zeros = torch.zeros(b, d, device=x.device)
         state = (zeros, zeros)
     h, c = state
     out = []
-    for t in range(xw.shape[1]):
-        m = mask[:, t, None]
-        h_new, c_new = step_fn(wh, xw[:, t], h, c, dtype)
+    for t in range(xw.shape[0] if time_major else xw.shape[1]):
+        xw_t = xw[t] if time_major else xw[:, t]
+        m = (mask[t] if time_major else mask[:, t])[:, None]
+        h_new, c_new = step_fn(wh, xw_t, h, c, dtype)
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
         out.append(h)
-    out = torch.stack(out, dim=1)
+    out = torch.stack(out, dim=0 if time_major else 1)
     if return_state:
         return out, (h, c)
     return out
 
 
+def output_dropout(h: torch.Tensor, gen: torch.Generator | None,
+                   keep_prob: float) -> torch.Tensor:
+    """TF1 DropoutWrapper(output_keep_prob) semantics: an independent
+    per-timestep mask on a layer's OUTPUT sequence — what the next layer
+    and the softmax see — while the recurrent (h, c) carry propagates
+    undropped. gen=None (eval) is the identity; the mask is drawn from
+    `gen`, which must live on h's device."""
+    if gen is None or keep_prob >= 1.0:
+        return h
+    keep = torch.rand(h.shape, generator=gen, device=h.device) < keep_prob
+    return torch.where(keep, h / keep_prob, 0.0)
+
+
 def rnn_scan(layers: list[dict], cell: str, x: torch.Tensor,
              mask: torch.Tensor, dtype, states: list | None = None,
-             return_states: bool = False):
-    """Stacked layers; returns top-layer hidden states [B, L, H];
-    `states` are per-layer (h0, c0) carries."""
+             return_states: bool = False, time_major: bool = False,
+             dropout_gen: torch.Generator | None = None,
+             keep_prob: float = 1.0):
+    """Stacked layers; returns top-layer hidden states [B, L, H] ([L, B, H]
+    with time_major); `states` are per-layer (h0, c0) carries.
+    `dropout_gen`/`keep_prob`: output dropout per layer, layer li drawing
+    from fold_in(dropout_gen, li) (see output_dropout)."""
     h = x
     new_states = []
     for li, p in enumerate(layers):
         st = states[li] if states is not None else None
         h, stT = layer_scan(p, cell, h, mask, dtype, state=st,
-                            return_state=True)
-        new_states.append(stT)
+                            return_state=True, time_major=time_major)
+        new_states.append(stT)   # carry is pre-dropout (DropoutWrapper)
+        if dropout_gen is not None:
+            h = output_dropout(h, fold_in(dropout_gen, li, h.device),
+                               keep_prob)
     if return_states:
         return h, new_states
     return h
@@ -212,14 +250,20 @@ def rnn_scan(layers: list[dict], cell: str, x: torch.Tensor,
 # Forward / recommend
 # --------------------------------------------------------------------------
 
-def seq_inputs(params, spec: SeqSpec, item_dev, user_dev, batch):
-    """Fused per-step input embeddings [B, L, D]."""
-    x = encode(params["item_in"], spec.item_in, item_dev, batch["inputs"],
-               act_dtype=spec.act_dt)
+def seq_inputs(params, spec: SeqSpec, item_dev, user_dev, batch,
+               dropout_gen=None, time_major: bool = False):
+    """Fused per-step input embeddings [B, L, D] ([L, B, D] with
+    time_major: the int ids are transposed before the gather, so no
+    embedding-sized transpose exists). dropout_gen: fusion dropout of the
+    item encoder at spec.keep_prob."""
+    ids = batch["inputs"].T if time_major else batch["inputs"]
+    x = encode(params["item_in"], spec.item_in, item_dev, ids,
+               act_dtype=spec.act_dt, dropout_gen=dropout_gen,
+               keep_prob=spec.keep_prob)
     if spec.user is not None:
         u = encode(params["user"], spec.user, user_dev, batch["user"],
                    act_dtype=spec.act_dt)
-        x = x + u[:, None, :]
+        x = x + (u[None, :, :] if time_major else u[:, None, :])
     return x
 
 
@@ -230,22 +274,110 @@ def init_states(spec: SeqSpec, batch_size: int, device) -> list:
 
 
 def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
-               states: list | None = None, return_states: bool = False):
-    """Top-layer hidden states [B, L, H]. `states`/`return_states` expose
-    the per-layer (h, c) carries of the segmented scan. With
-    use_pallas_scan, cell="lstm" runs the CUDA kernel (its plain version
-    on CPU tensors); the GRU kernel is not ported yet and raises rather
-    than falling back to the plain scan."""
-    x = seq_inputs(params, spec, item_dev, user_dev, batch)
-    mask = batch["mask"]
+               dropout_gen=None, states: list | None = None,
+               return_states: bool = False, time_major: bool = False):
+    """Top-layer hidden states [B, L, H] ([L, B, H] with time_major).
+    `states`/`return_states` expose the per-layer (h, c) carries of the
+    segmented scan. `dropout_gen` (a training key, see arec_torch.rng)
+    splits into the fusion-dropout and the output-dropout streams, as
+    arec's dropout_rng does. With use_pallas_scan, cell="lstm" runs the
+    CUDA kernels (their plain versions on CPU tensors); the GRU kernel is
+    not ported yet and raises rather than falling back to the plain scan."""
+    dev = batch["inputs"].device
+    g_in = g_rnn = None
+    if dropout_gen is not None and spec.keep_prob < 1.0:
+        g_in, g_rnn = split(dropout_gen, dev)
+    x = seq_inputs(params, spec, item_dev, user_dev, batch, g_in,
+                   time_major=time_major)
+    mask = batch["mask"].T if time_major else batch["mask"]
     if spec.use_pallas_scan and spec.cell == "lstm":
         from arec_torch.kernels.lstm_scan import lstm_scan
         return lstm_scan(params["rnn"], x, mask, dtype=spec.dtype,
-                         states=states, return_states=return_states)
+                         states=states, return_states=return_states,
+                         time_major=time_major, dropout_gen=g_rnn,
+                         keep_prob=spec.keep_prob)
     if spec.use_pallas_scan and spec.cell == "gru":
         raise NotImplementedError("GRU kernel: later slice")
     return rnn_scan(params["rnn"], spec.cell, x, mask, spec.dtype,
-                    states=states, return_states=return_states)
+                    states=states, return_states=return_states,
+                    time_major=time_major, dropout_gen=g_rnn,
+                    keep_prob=spec.keep_prob)
+
+
+def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
+             gen: torch.Generator, sampled: tuple | None = None,
+             states: list | None = None, return_states: bool = False,
+             use_kernel: bool | None = None, time_major: bool = False,
+             mesh=None, pop=None):
+    """Sampled-softmax CE over all valid positions. `gen` is the step's key
+    (arec_torch.rng): it splits into the dropout and the negatives streams,
+    as arec's rng does; `sampled=(ids, p)` hands pre-drawn negatives in.
+    With `states`/`return_states` the loss runs one TBPTT segment.
+
+    A packed history of train_segments·L steps is scanned in segments of L
+    with (h, c) carried and gradients flowing through the carries; each
+    segment runs under torch.utils.checkpoint, so its scan residuals are
+    recomputed in the backward instead of kept. Each segment's dropout
+    seed is drawn before the checkpointed call and its generators are
+    built inside it, so the recompute redraws the same masks."""
+    dev = batch["inputs"].device
+    g_drop, g_neg = split(gen, dev)
+    L, n = spec.max_seq_len, spec.train_segments
+    if n > 1 and batch["inputs"].shape[1] == n * L:
+        def seg_fn(st, seg, seed):
+            return seq_hidden(params, spec, item_dev, user_dev, seg,
+                              dropout_gen=generator(seed, dev), states=st,
+                              return_states=True, time_major=time_major)
+
+        st = states if states is not None else init_states(
+            spec, batch["inputs"].shape[0], dev)
+        hs = []
+        for s in range(n):
+            seg = dict(batch)
+            seg["inputs"] = batch["inputs"][:, s * L:(s + 1) * L]
+            seg["mask"] = batch["mask"][:, s * L:(s + 1) * L]
+            seed = fold_in(g_drop, s).initial_seed()
+            h_s, st = checkpoint(seg_fn, st, seg, seed, use_reentrant=False)
+            hs.append(h_s)
+        h, new_states = torch.cat(hs, dim=0 if time_major else 1), st
+    else:
+        h = seq_hidden(params, spec, item_dev, user_dev, batch,
+                       dropout_gen=g_drop, states=states,
+                       return_states=return_states, time_major=time_major)
+        if return_states:
+            h, new_states = h
+    d = h.shape[-1]
+    flat_h = h.reshape(-1, d)
+    if time_major:
+        # position order (t, b): the loss is a weighted mean, so any
+        # consistent flattening of (h, targets, mask) gives the same value
+        flat_t = batch["targets"].T.reshape(-1)
+        flat_w = batch["mask"].T.reshape(-1)
+    else:
+        flat_t = batch["targets"].reshape(-1)
+        flat_w = batch["mask"].reshape(-1)
+    embed_raw = None
+    if spec.tie_output:
+        def embed(ids):
+            return encode_with_bias(params["item_in"], spec.item_in,
+                                    item_dev, ids, act_dtype=spec.act_dt)
+    else:
+        # raw [n, D+1] rows (bias in lane D): the fused CE's aug mode takes
+        # them as they are for the true side
+        def embed_raw(ids):
+            return dense_lookup(params["item_out"], ids)
+
+        def embed(ids):
+            rows = embed_raw(ids)
+            return rows[:, :d], rows[:, d]
+    loss = sampled_softmax_loss(
+        flat_h, flat_t, embed, g_neg, spec.num_sampled, spec.vocab,
+        dist=spec.sampler, weights=flat_w, compute_dtype=spec.dtype,
+        sampled=sampled, use_kernel=use_kernel, mesh=mesh, pop=pop,
+        embed_raw=embed_raw)
+    if return_states:
+        return loss, new_states
+    return loss
 
 
 def seq_final_state(params, spec: SeqSpec, item_dev, user_dev,

@@ -13,8 +13,9 @@ device-side assert that would kill a standing server: `dense_lookup`
 clamps (jnp.take mode="clip"), and the attribute-map gathers wrap negative
 ids once and then clamp (jnp `x[idx]`).
 
-The sparse-update subset helpers and `make_compact_lookup` come with the
-training slice.
+Gathers give dense table gradients (arec's dense train step). The
+sparse-update subset helpers and `make_compact_lookup` come with the
+sparse touched-rows step.
 """
 
 from __future__ import annotations
@@ -203,9 +204,15 @@ def attrs_to_device(attrs: AttributeData, spec: EncoderSpec,
 
 
 def dense_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-device row gather; ids clamp into range like jnp.take's
-    mode="clip" (pad ids address a real zeroed pad row)."""
-    return table[ids.clamp(0, table.shape[0] - 1)]
+    """Single-device row gather of a [rows, width] table; ids clamp into
+    range like jnp.take's mode="clip" (pad ids address a real zeroed pad
+    row). Its gradient is the dense table-sized scatter-add of arec's dense
+    step, through `embedding`'s backward: `table[ids]`'s index_put
+    backward sums each run of repeated ids (pad ids, the row-0 stand-in of
+    empty tag slots) serially and took 52 ms of an 80 ms c4 train step on
+    the H100."""
+    return torch.nn.functional.embedding(
+        ids.clamp(0, table.shape[0] - 1), table)
 
 
 def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -226,25 +233,30 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def encode(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-           act_dtype=None) -> torch.Tensor:
+           act_dtype=None, dropout_gen=None,
+           keep_prob: float = 1.0) -> torch.Tensor:
     """ids int [...] (values in [0, num_entities]; num_entities = pad) →
     entity latents float32 [..., dim]. Pad ids encode to exactly zero.
-    act_dtype: arec's train-path activation dtype (None = float32)."""
-    latent, _ = _encode_impl(params, spec, attr_dev, ids, act_dtype)
+    act_dtype: arec's train-path activation dtype (None = float32).
+    dropout_gen/keep_prob: training dropout on the fused latents."""
+    latent, _ = _encode_impl(params, spec, attr_dev, ids, act_dtype,
+                             dropout_gen, keep_prob)
     return latent
 
 
 def encode_with_bias(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-                     act_dtype=None):
+                     act_dtype=None, dropout_gen=None,
+                     keep_prob: float = 1.0):
     """(latents [..., dim], bias [...]) — candidate-side encode; the bias is
     column `dim` of the entity-ID field's row."""
     if not spec.with_bias:
         raise ValueError("encode_with_bias needs EncoderSpec.with_bias")
-    return _encode_impl(params, spec, attr_dev, ids, act_dtype)
+    return _encode_impl(params, spec, attr_dev, ids, act_dtype, dropout_gen,
+                        keep_prob)
 
 
 def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-                 act_dtype=None):
+                 act_dtype=None, dropout_gen=None, keep_prob: float = 1.0):
     batch_shape = ids.shape
     flat = ids.reshape(-1).long()
     table = params["tables"][FUSED]
@@ -317,7 +329,8 @@ def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
         per_attr.append(row)
 
     latent = apply_fusion(params.get("fusion"), per_attr, kind=spec.fusion,
-                          nonlinear=spec.nonlinear, act_dtype=act_dtype)
+                          nonlinear=spec.nonlinear, act_dtype=act_dtype,
+                          dropout_gen=dropout_gen, keep_prob=keep_prob)
     # pad entities (id == num_entities) encode to zero
     valid = (flat < spec.schema.num_entities).to(latent.dtype)[:, None]
     latent = (latent * valid).reshape(*batch_shape, spec.dim)

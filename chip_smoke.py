@@ -4,18 +4,27 @@
     python3 chip_smoke.py        # from the root of a checkout; one card
 
 1. Prints the card (name, power limit) and builds every kernel of the
-   serving path from the sources in arec_torch/csrc/ (one nvcc each, all
-   started together).
+   serving and training paths from the sources in arec_torch/csrc/ (one
+   nvcc each, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   serving shapes, and times kernel, plain version and the library call
-   that computes the same function.
+   shapes its path gives it (LSTM forward at the serving shape, and its
+   training launch, LSTM backward and the fused sampled-softmax CE forward
+   and backward at c4's training shape), and times kernel, plain version
+   and a library call that computes the same function (a yardstick only).
 3. Serves the c4 sequence model (configs/c4_lstm_attr_xing.json: LSTM,
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
    twin's item vocabulary (1.3M items, deg-12 tags over 4096) with seeded
    random weights, through `Recommender.from_histories` and the request
    loop, counting kernel launches on that run, and checks the answers and
    the query states against the plain scan.
-4. Prints one `{"kernels": [...]}` JSON line and, last, the
+4. Trains c4 on the same twin: `seq_batches` → `make_train_step` (Adagrad,
+   dense updates) for one warm-up and 20 counted steps, printing loss,
+   grad_norm, step time, examples/s, launches per kernel and a profile of
+   one step; checks one step's gradients on the kernel path against the
+   plain path on the same batch and negatives, and a two-segment step's
+   carried gradient; then Recall@30 over a few `eval_batches` through the
+   serving top-k.
+5. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -55,6 +64,29 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 # (2^-8 relative) apart and carry that through later steps
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
        "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+# LSTM backward vs plain: f32 at tests/test_seq.py's gradient tolerance;
+# bf16 looser, as the gate derivatives are rounded before both products
+BWD_TOL = {"float32": dict(rtol=2e-3, atol=2e-4),
+           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# sampled CE vs plain: f32 at tests/test_fused_softmax.py's value and
+# gradient tolerances; bf16 at the tolerances of
+# tests/test_torch_sampled_softmax_cuda.py (one bf16 ulp of a product)
+CE_VAL = {"float32": dict(rtol=1e-5, atol=1e-6),
+          "bfloat16": dict(rtol=1e-3, atol=1e-3)}
+CE_GRAD = {"float32": dict(rtol=2e-4, atol=2e-5),
+           "bfloat16": dict(rtol=2e-2, atol=1e-4)}
+# a train step's gradients, kernel path vs plain path (bf16 compute): per
+# parameter, max |kernel − plain| ≤ STEP_GRAD_TOL · max |plain|. The paths
+# round to bf16 at different points (the kernels round the gate and
+# softmax residues before their products, autograd of the plain path
+# rounds each product's cotangent), each worth 2^-8 of a term.
+STEP_GRAD_TOL = 3e-2
+LOSS_TOL = 1e-3
+# two checkpointed segments vs one pass, f32: the same per-step arithmetic,
+# so only the order of the table-gradient and dWh sums differs
+SEG_GRAD_TOL = 1e-3
+TRAIN_STEPS = 20
+EVAL_BATCHES = 4
 
 
 def log(*a):
@@ -95,17 +127,51 @@ def layer_inputs(L, B, H, dev, seed=0):
             for a in arrays]
 
 
-def bound(L, B, H, valid, dtype):
-    """(bound_ms, bound_by, bytes, flops): each input read once and each
-    output written once, against 2·4H·H FLOPs for each valid (row, step)."""
-    welt = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * (L * B * 4 * H + B * L + 2 * B * H + L * B * H + B * H) \
-        + welt * 4 * H * H
-    flops = 2 * 4 * H * H * valid
+def roofline(nbytes, flops, dtype):
+    """(bound_ms, bound_by, bytes, flops): the larger of the bytes over the
+    card's memory rate and the FLOPs over its peak for `dtype`."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def bound(L, B, H, valid, dtype):
+    """lstm_scan_fwd's roofline: each input read once and each output
+    written once, against 2·4H·H FLOPs for each valid (row, step)."""
+    welt = 2 if dtype == "bfloat16" else 4
+    nbytes = 4 * (L * B * 4 * H + B * L + 2 * B * H + L * B * H + B * H) \
+        + welt * 4 * H * H
+    return roofline(nbytes, 2 * 4 * H * H * valid, dtype)
+
+
+def bound_resid(L, B, H, valid, dtype):
+    """The training launch: lstm_scan_fwd's bytes plus hp, cp written."""
+    _, _, nbytes, flops = bound(L, B, H, valid, dtype)
+    return roofline(nbytes + 2 * 4 * L * B * H, flops, dtype)
+
+
+def bound_bwd(L, B, H, valid, dtype):
+    """lstm_scan_bwd: xw, mask, hp, cp, dh_out, dcT, Wh read; dxw, dWh,
+    dh0, dc0 written; three [., H]·[H, 4H]-sized products (gate recompute,
+    dh carry, dWh) for each valid (row, step) (pad steps add nothing)."""
+    welt = 2 if dtype == "bfloat16" else 4
+    nbytes = 4 * (2 * L * B * 4 * H + B * L + 3 * L * B * H + 3 * B * H
+                  + H * 4 * H) + welt * 4 * H * H
+    return roofline(nbytes, 3 * 2 * 4 * H * H * valid, dtype)
+
+
+def bound_ce(N, S, D, Dt, dtype, backward):
+    """sampled_ce: q, v_true, v_samp, c_samp and the [N] row inputs read
+    (lse too in the backward); (ce, lse) or (dq, d(v_true), d(v_samp),
+    d(c_samp), d(tl_base)) written. One [N, D]·[D, S] product forward
+    (the logits); three backward (logits, dq, d(v_samp))."""
+    ins = N * D + N * Dt + S * D + S + 3 * N + S      # + tl, ids, w; sids
+    if backward:
+        nbytes = 4 * (ins + N + 1 + N * D + N * Dt + S * D + S + N)
+    else:
+        nbytes = 4 * (ins + 2 * N + 2)
+    return roofline(nbytes, (6 if backward else 2) * N * S * D, dtype)
 
 
 def kernel_phase(dev):
@@ -164,29 +230,275 @@ def kernel_phase(dev):
     return errs, times
 
 
-def slice_phase(dev, twin=TWIN, cuts=CUTS):
-    """c4 at the XING twin's vocabulary, served through the port's entry
-    points; returns the kernel launches of the served run."""
+DTYPES = ("float32", "bfloat16")
+BOUND_KEYS = ("bound_ms", "bound_by", "bytes", "flops")
+
+
+def max_err(got, want):
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def report(kernel, shape, name, t, library):
+    log(f"{kernel} {shape} {name}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library ({library}) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} FLOPs)")
+
+
+def lstm_train_phase(dev):
+    """lstm_scan_fwd's training launch (with the hp, cp residuals) and
+    lstm_scan_bwd against their plain versions at c4's training shape
+    (L = 50, B = 128, H = 128) and a ragged B = 100, with all-pad rows,
+    nonzero (h0, c0) and a nonzero dcT; then their times at B = 128."""
     import numpy as np
     import torch
+    from arec_torch.kernels import lstm_scan as tk
+
+    L, H = 50, 128
+
+    def operands(B):
+        rng = np.random.default_rng(B + 7)
+        cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev) for s in ((L, B, H), (B, H))]     # dh_out, dcT
+        return layer_inputs(L, B, H, dev, seed=B + 1) + cot
+
+    errs = {"fwd": {}, "bwd": {}}
+    for B in (128, 100):
+        xw, wh, mask, h0, c0, dh, dcT = operands(B)
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            got = tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt, residuals=True)
+            torch.cuda.synchronize()
+            want = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt,
+                                       residuals=True)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **TOL[name])
+            e_f = max_err(got, want)
+            hp, cp = want[2:]
+            got = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dt)
+            torch.cuda.synchronize()
+            want = tk.lstm_layer_bwd_plain(xw, wh, mask, hp, cp, dh, dcT, dt)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **BWD_TOL[name])
+            again = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dt)
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+                "lstm_scan_bwd does not repeat bit for bit")
+            e_b = max_err(got, want)
+            errs["fwd"][name] = max(errs["fwd"].get(name, 0.0), e_f)
+            errs["bwd"][name] = max(errs["bwd"].get(name, 0.0), e_b)
+            log(f"kernel vs plain  B={B} L={L} H={H} {name}: training "
+                f"forward (h_all, cT, hp, cp) max abs err {e_f:.3e} "
+                f"(tolerance {TOL[name]}); lstm_scan_bwd (dxw, dWh, dh0, "
+                f"dc0) max abs err {e_b:.3e} (tolerance {BWD_TOL[name]}), "
+                f"repeats bit for bit")
+
+    B = 128
+    xw, wh, mask, h0, c0, dh, dcT = operands(B)
+    valid = int(mask.sum())
+    times = {"fwd": {}, "bwd": {}}
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        hp, cp = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt,
+                                     residuals=True)[2:]
+        times["fwd"][name] = dict(
+            ms=cuda_ms(lambda: tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt,
+                                                residuals=True), 50),
+            plain_ms=cuda_ms(lambda: tk.lstm_layer_plain(
+                xw, wh, mask, h0, c0, dt, residuals=True), 10),
+            **dict(zip(BOUND_KEYS, bound_resid(L, B, H, valid, name))))
+        times["bwd"][name] = dict(
+            ms=cuda_ms(lambda: tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh,
+                                                 dcT, dt), 50),
+            plain_ms=cuda_ms(lambda: tk.lstm_layer_bwd_plain(
+                xw, wh, mask, hp, cp, dh, dcT, dt), 5),
+            **dict(zip(BOUND_KEYS, bound_bwd(L, B, H, valid, name))))
+
+    # yardstick: cuDNN's LSTM on the same [L, B, H] sequence (all-ones mask,
+    # its own input projection included): its training forward, and its
+    # forward + backward less that forward
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn(L, B, H, device=dev)
+    gy = torch.randn(L, B, H, device=dev)
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        lstm = torch.nn.LSTM(H, H, device=dev, dtype=dt)
+        lstm.flatten_parameters()
+        xs = x.to(dt).requires_grad_()
+        st, g = (h0[None].to(dt), c0[None].to(dt)), gy.to(dt)
+        fwd = cuda_ms(lambda: lstm(xs, st), 20)
+        both = cuda_ms(lambda: lstm(xs, st)[0].backward(g), 20)
+        times["fwd"][name]["library_ms"] = fwd
+        times["bwd"][name]["library_ms"] = both - fwd
+    shape = f"B={B} L={L} H={H}"
+    for name in times["fwd"]:
+        report("lstm_scan_fwd (training launch, with hp/cp)", shape, name,
+               times["fwd"][name], "cuDNN nn.LSTM training forward, "
+               "all-ones mask, with input projection")
+        report("lstm_scan_bwd", shape, name, times["bwd"][name],
+               "cuDNN nn.LSTM forward+backward less its forward, all-ones "
+               "mask")
+    return errs, times
+
+
+def ce_inputs(N, S, D, aug, dev, seed):
+    """The fused CE's operands as c4's training step hands them over:
+    q [N, D]; v_true [N, D+1] (aug: the raw output-table rows) or [N, D];
+    v_samp [S, D]; c_samp [S]; tl_base [N]; true ids (1/8 of the sampled
+    ids forced to hit); 0/1 position weights."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    true_ids = rng.integers(0, 1_300_000, N).astype(np.int32)
+    sampled_ids = rng.integers(0, 1_300_000, S).astype(np.int32)
+    sampled_ids[: S // 8] = true_ids[: S // 8]
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    arrays = [f(N, D), f(N, D + aug) * 0.3, f(S, D) * 0.3, f(S) * 0.5,
+              f(N) * 0.5, true_ids, sampled_ids,
+              rng.integers(0, 2, N).astype(np.float32)]
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def ce_phase(dev):
+    """sampled_ce_fwd / sampled_ce_bwd against their plain versions at c4's
+    training shape (N = 128·50 rows, S = 1024, D = 128), aug and non-aug,
+    weighted, with forced accidental hits; then their times (aug, the mode
+    c4's untied output table takes)."""
+    import torch
+    import torch.nn.functional as F
+    from arec_torch.kernels import sampled_softmax as tks
+
+    N, S, D = 6400, 1024, 128
+    g_num = torch.tensor(0.7, device=dev)   # cotangent of Σ w·ce
+    errs = {"fwd": {}, "bwd": {}}
+    for aug in (1, 0):
+        args = ce_inputs(N, S, D, aug, dev, seed=aug)
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            got = tks.sampled_ce_fwd(*args, dt)
+            torch.cuda.synchronize()
+            want = tks.sampled_ce_fwd_plain(*args, dt)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **CE_VAL[name])
+            again = tks.sampled_ce_fwd(*args, dt)
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+                "sampled_ce_fwd does not repeat bit for bit")
+            e_f = max_err(got[2:], want[2:])            # per-row ce, lse
+            num_rel = abs(float(got[0] / want[0]) - 1.0)
+            lse = want[3]
+            got = tks.sampled_ce_bwd(*args, lse, g_num, dt)
+            torch.cuda.synchronize()
+            want = tks.sampled_ce_bwd_plain(*args, lse, g_num, dt)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **CE_GRAD[name])
+            again = tks.sampled_ce_bwd(*args, lse, g_num, dt)
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+                "sampled_ce_bwd does not repeat bit for bit")
+            e_b = max_err(got, want)
+            if aug:
+                errs["fwd"][name], errs["bwd"][name] = e_f, e_b
+            log(f"kernel vs plain  N={N} S={S} D={D} aug={aug} {name}: "
+                f"sampled_ce_fwd (ce, lse) max abs err {e_f:.3e}, Σw·ce "
+                f"relative err {num_rel:.3e} (tolerance {CE_VAL[name]}); "
+                f"sampled_ce_bwd max abs err {e_b:.3e} (tolerance "
+                f"{CE_GRAD[name]}); both repeat bit for bit")
+
+    args = ce_inputs(N, S, D, 1, dev, seed=1)
+    q, vt, vs, cs, tl, tid, sid, w = args
+    times = {"fwd": {}, "bwd": {}}
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        lse = tks.sampled_ce_fwd_plain(*args, dt)[3]
+        times["fwd"][name] = dict(
+            ms=cuda_ms(lambda: tks.sampled_ce_fwd(*args, dt), 50),
+            plain_ms=cuda_ms(lambda: tks.sampled_ce_fwd_plain(*args, dt), 20),
+            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + 1, name, False))))
+        times["bwd"][name] = dict(
+            ms=cuda_ms(lambda: tks.sampled_ce_bwd(*args, lse, g_num, dt), 50),
+            plain_ms=cuda_ms(lambda: tks.sampled_ce_bwd_plain(
+                *args, lse, g_num, dt), 20),
+            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + 1, name, True))))
+
+        # yardstick: torch.matmul in `dt` + F.cross_entropy over the
+        # materialised [N, 1+S] logits (true logit first), weighted sum
+        zero = torch.zeros(N, dtype=torch.long, device=dev)
+        hit = sid[None, :] == tid[:, None]
+
+        def library(q, vt, vs, cs):
+            tl_ = tl + (q * vt[:, :D]).sum(1) + vt[:, D]
+            raw = torch.matmul(q.to(dt), vs.to(dt).T).float() + cs
+            logits = torch.cat([tl_[:, None],
+                                torch.where(hit, -1e9, raw)], 1)
+            return (F.cross_entropy(logits, zero, reduction="none")
+                    * w).sum()
+
+        leaves = [t.clone().requires_grad_() for t in (q, vt, vs, cs)]
+        with torch.no_grad():
+            times["fwd"][name]["library_ms"] = cuda_ms(
+                lambda: library(q, vt, vs, cs), 50)
+        fwd = cuda_ms(lambda: library(*leaves), 20)
+        both = cuda_ms(lambda: library(*leaves).backward(), 20)
+        times["bwd"][name]["library_ms"] = both - fwd
+    shape = f"N={N} S={S} D={D} aug"
+    for name in times["fwd"]:
+        report("sampled_ce_fwd", shape, name, times["fwd"][name],
+               f"torch.matmul in {name} + F.cross_entropy over the "
+               f"materialised [N, 1+S] logits, forward")
+        report("sampled_ce_bwd", shape, name, times["bwd"][name],
+               "the same, forward+backward less its forward")
+    return errs, times
+
+
+def load_c4(twin, cuts):
+    """c4's config on the XING twin's data section, and the prepared
+    dataset (built on first use, then read from its cache)."""
     from arec_torch.cli.main import load_config, parse_args
     from arec_torch.data.io import load_or_prepare
-    from arec_torch.kernels import lstm_scan as tk
-    from arec_torch.models.seq import SeqSpec, init_seq
-    from arec_torch.serve import Recommender, _item_latents, _query_fn
-    from arec_torch.serve import _serve_loop
 
     sets = {**twin, **{k: v for k, (_, v) in cuts.items()},
             "data.data_dir": DATA_DIR}
     argv = ["--config", C4] + [a for k, v in sets.items()
                                for a in ("--set", f"{k}={v}")]
     cfg = load_config(parse_args(argv))
+    t0 = time.perf_counter()
+    ds = load_or_prepare(cfg.data)
+    return cfg, ds, time.perf_counter() - t0
+
+
+def device_breakdown(what, fn):
+    """Run fn() once under torch.profiler and print device busy time, the
+    idle share of the wall time and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0}     # kernels, not aten ops
+    busy_ms = sum(dev_us.values()) / 1e3
+    log(f"profile of {what}: device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
+
+
+def slice_phase(dev, twin=TWIN, cuts=CUTS):
+    """c4 at the XING twin's vocabulary, served through the port's entry
+    points; returns the kernel launches of the served run."""
+    import numpy as np
+    import torch
+    from arec_torch.kernels import lstm_scan as tk
+    from arec_torch.models.seq import SeqSpec, init_seq
+    from arec_torch.serve import Recommender, _item_latents, _query_fn
+    from arec_torch.serve import _serve_loop
+
+    cfg, ds, prep_s = load_c4(twin, cuts)
     log("reduced: " + ", ".join(f"{k} {a} -> {b}"
                                 for k, (a, b) in cuts.items())
         + " (no served tensor depends on them)")
-    t0 = time.perf_counter()
-    ds = load_or_prepare(cfg.data)
-    prep_s = time.perf_counter() - t0
     spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
     V, L = spec.vocab, spec.max_seq_len
     assert V == twin["data.syn_items"] and spec.dim == 128 and L == 50, (
@@ -268,20 +580,183 @@ def slice_phase(dev, twin=TWIN, cuts=CUTS):
         f"lstm_scan_fwd launches {launches}")
 
     # where one served batch's time goes: device time by kernel name
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rec.from_histories(hists, seen=seen)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}     # kernels, not aten ops
-    busy_ms = sum(dev_us.values()) / 1e3
-    log(f"profile of one served batch: device busy {busy_ms:.3f} ms of "
-        f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
-    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
+    device_breakdown("one served batch",
+                     lambda: rec.from_histories(hists, seen=seen))
+    return launches
+
+
+def grad_gap(got, want):
+    """max over parameters of max|got − want| / max|want|."""
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
+    """c4 trained on the XING twin through the port's train step: batches
+    from `seq_batches`, `make_train_step` with Adagrad and dense table
+    updates, each step's key from `step_generator`. Returns the launches
+    of each kernel over the counted steps."""
+    import itertools
+
+    import torch
+    from arec_torch.data.dataset import eval_batches, seq_batches
+    from arec_torch.kernels import lstm_scan as tk
+    from arec_torch.kernels import sampled_softmax as tks
+    from arec_torch.losses.sampling import draw
+    from arec_torch.models.seq import (SeqSpec, init_seq, seq_item_latents,
+                                       seq_loss)
+    from arec_torch.rng import generator
+    from arec_torch.serve import _query_fn
+    from arec_torch.tables.engine import attrs_to_device
+    from arec_torch.train.evalu import recall_hits
+    from arec_torch.train.step import (_leaves, init_state, make_optimizer,
+                                       make_train_step, step_generator,
+                                       tree_map)
+
+    cfg, ds, _ = load_c4(twin, cuts)
+    tc = cfg.train
+    spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    assert (spec.vocab, spec.dim, spec.pack_len, spec.num_sampled) == (
+        twin["data.syn_items"], 128, 50, 1024), spec
+    assert (tc.optimizer, tc.batch_size, tc.sparse_update) == (
+        "adagrad", 128, False), tc
+    item_dev = attrs_to_device(ds.item_attrs.restrict(spec.item_in.schema),
+                               spec.item_in, dev)
+    params = init_seq(torch.Generator(device=dev).manual_seed(0), spec)
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    def loss_fn(p, batch, gen):
+        return seq_loss(p, spec, item_dev, None, batch, gen, time_major=True)
+
+    opt = make_optimizer(tc.optimizer, tc.learning_rate)
+    state = init_state(params, opt)
+    step = make_train_step(loss_fn, opt, tc.learning_rate)
+    # the batches are packed on the host ahead of the steps, as a
+    # prefetching input pipeline would; each step moves its own to the card
+    host = list(itertools.islice(
+        seq_batches(ds, tc.batch_size, spec.pack_len, tc.seed, epoch=0),
+        steps + 3))
+    assert len(host) == steps + 3, len(host)
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = step(state, on_dev(host[0]), step_generator(tc.seed, 0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    counters = {tk.KERNEL: tk.lstm_layer, tk.KERNEL_BWD: tk.lstm_layer_bwd,
+                "sampled_ce_fwd": tks.sampled_ce_fwd,
+                "sampled_ce_bwd": tks.sampled_ce_bwd}
+    for fn in counters.values():                     # ---- the main path
+        fn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        state, m = step(state, on_dev(host[i]), step_generator(tc.seed, i))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # ---- read just after
+    per_step = spec.num_layers * spec.train_segments
+    recompute = 2 if spec.train_segments > 1 else 1   # checkpointed segments
+    assert launches == {
+        tk.KERNEL: steps * per_step * recompute,
+        tk.KERNEL_BWD: steps * per_step,
+        "sampled_ce_fwd": steps, "sampled_ce_bwd": steps}, launches
+
+    loss = torch.stack([m["loss"] for m in metrics]).cpu()
+    norm = torch.stack([m["grad_norm"] for m in metrics]).cpu()
+    assert torch.isfinite(loss).all() and torch.isfinite(norm).all()
+    assert (norm > 0).all()
+    assert all(torch.isfinite(t).all() for t in _leaves(state.params))
+    positions = sum(float(b["mask"].sum()) for b in host[1:steps + 1])
+    step_ms = wall_s / steps * 1e3
+    log(f"trained c4 on the XING twin (V={spec.vocab}, {n_params} "
+        f"parameters, Adagrad lr {tc.learning_rate}, dense updates, batch "
+        f"{tc.batch_size}, S={spec.num_sampled}): first step "
+        f"{first_s:.3f} s, then {steps} steps: loss {float(loss[0]):.4f} -> "
+        f"{float(loss[-1]):.4f}, grad_norm {float(norm[0]):.4f} -> "
+        f"{float(norm[-1]):.4f}; step {step_ms:.3f} ms, "
+        f"{tc.batch_size * steps / wall_s:.1f} examples/s "
+        f"({positions / wall_s:.0f} valid positions/s); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    log("loss per step: " + " ".join(f"{float(x):.4f}" for x in loss))
+
+    b = on_dev(host[steps + 1])
+    gen = step_generator(tc.seed, steps + 1)
+    device_breakdown("one train step",
+                     lambda: step(state, b, gen))
+
+    # one step's gradients, kernel path vs plain path (plain scan, pure CE),
+    # on the same batch and the same pre-drawn negatives
+    b = on_dev(host[steps + 2])
+    sampled = draw(generator(7, dev), spec.num_sampled, spec.vocab,
+                   spec.sampler)
+    gen = step_generator(tc.seed, steps + 2)
+
+    def grads(sp, use_kernel):
+        live = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+        value = seq_loss(live, sp, item_dev, None, b, gen, sampled=sampled,
+                         use_kernel=use_kernel, time_major=True)
+        return value.detach(), torch.autograd.grad(
+            value, _leaves(live), allow_unused=True, materialize_grads=True)
+
+    l_k, g_k = grads(spec, True)
+    l_p, g_p = grads(dataclasses.replace(spec, use_pallas_scan=False), False)
+    gap = grad_gap(g_k, g_p)
+    assert abs(float(l_k / l_p) - 1.0) < LOSS_TOL, (float(l_k), float(l_p))
+    assert gap <= STEP_GRAD_TOL, gap
+    log(f"one step's gradients, kernel path vs plain path ({spec.dtype}): "
+        f"loss {float(l_k):.6f} vs {float(l_p):.6f}, worst parameter "
+        f"max|Δ|/max|plain| {gap:.3e} (tolerance {STEP_GRAD_TOL}, loss "
+        f"{LOSS_TOL} relative)")
+    del g_k, g_p
+
+    # the carried gradient: two checkpointed segments of L/2 against one
+    # pass over the same L-wide batch, kernel path, f32
+    one = dataclasses.replace(spec, compute_dtype="float32")
+    two = dataclasses.replace(one, max_seq_len=spec.max_seq_len // 2,
+                              train_segments=2)
+    assert two.pack_len == one.pack_len
+    before = {k: fn.launches for k, fn in counters.items()}
+    l_2, g_2 = grads(two, True)
+    seg_launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    l_1, g_1 = grads(one, True)
+    gap = grad_gap(g_2, g_1)
+    assert seg_launches[tk.KERNEL] == 2 * 2 * spec.num_layers, seg_launches
+    assert seg_launches[tk.KERNEL_BWD] == 2 * spec.num_layers, seg_launches
+    assert abs(float(l_2 / l_1) - 1.0) < 1e-5, (float(l_2), float(l_1))
+    assert gap <= SEG_GRAD_TOL, gap
+    log(f"two segments of L={two.max_seq_len} vs one pass of "
+        f"L={one.max_seq_len} (float32, kernel path): loss {float(l_2):.6f} "
+        f"vs {float(l_1):.6f}, worst parameter max|Δ|/max|one pass| "
+        f"{gap:.3e} (tolerance {SEG_GRAD_TOL}); launches {seg_launches} "
+        f"(the forward again in each segment's recompute)")
+    del g_1, g_2
+
+    # Recall@K of the trained weights through the serving top-k
+    k, hits, total, n = tc.eval_topk, 0.0, 0.0, 0
+    with torch.inference_mode():
+        v, bias = seq_item_latents(state.params, spec, item_dev)
+        for batch in itertools.islice(
+                eval_batches(ds, tc.eval_batch_size, spec.pack_len),
+                EVAL_BATCHES):
+            seen = torch.from_numpy(ds.seen_items[batch["user"]]).to(dev)
+            tb = on_dev(batch)
+            q = _query_fn(spec, state.params, item_dev, None, tb)
+            assert torch.isfinite(q).all()
+            h, t = recall_hits(q, v, bias, seen, tb["pos_item"], tb["valid"],
+                               k=k)
+            hits, total, n = hits + float(h), total + float(t), n + 1
+    recall = hits / max(total, 1.0)
+    assert n == EVAL_BATCHES and 0.0 <= recall <= 1.0, (n, recall)
+    log(f"Recall@{k} after {steps + 1} steps over {n} eval batches "
+        f"({int(total)} held-out rows): {recall:.4f}")
     return launches
 
 
@@ -296,6 +771,7 @@ def main() -> int:
         return 2
     try:
         from arec_torch.kernels import _build, lstm_scan as tk
+        from arec_torch.kernels import sampled_softmax as tks
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -311,7 +787,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build([tk.KERNEL])
+    reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL])
     log(f"built {sorted(reports) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
@@ -320,26 +796,68 @@ def main() -> int:
         log(f"{name} ptxas: {regs}")
 
     errs, times = kernel_phase(dev)
-    launches = slice_phase(dev)
+    lstm_errs, lstm_times = lstm_train_phase(dev)
+    ce_errs, ce_times = ce_phase(dev)
+    served = slice_phase(dev)
+    trained = train_phase(dev)
 
-    t = times["bfloat16"]          # c4 serves with compute_dtype=bfloat16
-    kernels = [{
-        "name": tk.KERNEL, "route": "cuda",
-        "source": "arec_torch/csrc/lstm_scan_fwd.cu",
-        "replaces": "arec/kernels/lstm_scan.py:89",
-        "replaces_fn": "arec/kernels/lstm_scan.py:_fwd_kernel",
-        "launches": launches,
-        "max_abs_err": errs["bfloat16"],
-        "max_err_f32": errs["float32"], "max_err_bf16": errs["bfloat16"],
-        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-        "library": "torch.nn.LSTM (cuDNN), all-ones mask, bf16, weights "
-                   "compacted per call",
-        "dtype": "bfloat16", "shape": "L=50 B=256 H=128",
-        "f32": {k: times["float32"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }]
+    def row(name, source, replaces, fn, launches, err, t, shape, library):
+        # c4 computes in bfloat16: the row's numbers are bf16, the f32
+        # (parity) ones sit beside them
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        b = t["bfloat16"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "replaces_fn": fn,
+                "launches": launches, "max_abs_err": err["bfloat16"],
+                "max_err_f32": err["float32"],
+                "max_err_bf16": err["bfloat16"],
+                "ms": b["ms"], "kernel_ms": b["ms"],
+                "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+                "library": library, "dtype": "bfloat16", "shape": shape,
+                "f32": {k: t["float32"][k] for k in keys}}
+
+    fwd = row(tk.KERNEL, "arec_torch/csrc/lstm_scan_fwd.cu",
+              "arec/kernels/lstm_scan.py:89",
+              "arec/kernels/lstm_scan.py:_fwd_kernel",
+              served + trained[tk.KERNEL], errs, times, "L=50 B=256 H=128",
+              "torch.nn.LSTM (cuDNN), all-ones mask, bf16, weights "
+              "compacted per call")
+    fwd.update(launches_serving=served,
+               launches_training=trained[tk.KERNEL],
+               training_launch={
+                   "shape": "L=50 B=128 H=128, with hp/cp residuals",
+                   "max_err_f32": lstm_errs["fwd"]["float32"],
+                   "max_err_bf16": lstm_errs["fwd"]["bfloat16"],
+                   "library": "torch.nn.LSTM (cuDNN) training forward, "
+                              "all-ones mask",
+                   **{dt: {k: lstm_times["fwd"][dt][k] for k in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")} for dt in DTYPES}})
+    kernels = [
+        fwd,
+        row(tk.KERNEL_BWD, "arec_torch/csrc/lstm_scan_bwd.cu",
+            "arec/kernels/lstm_scan.py:182",
+            "arec/kernels/lstm_scan.py:_bwd_kernel",
+            trained[tk.KERNEL_BWD], lstm_errs["bwd"], lstm_times["bwd"],
+            "L=50 B=128 H=128",
+            "torch.nn.LSTM (cuDNN) forward+backward less its forward, "
+            "all-ones mask"),
+        row("sampled_ce_fwd", "arec_torch/csrc/sampled_ce.cu",
+            "arec/kernels/sampled_softmax.py:146",
+            "arec/kernels/sampled_softmax.py:_sums_fwd_kernel",
+            trained["sampled_ce_fwd"], ce_errs["fwd"], ce_times["fwd"],
+            "N=6400 S=1024 D=128 aug",
+            "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
+            "logits, forward"),
+        row("sampled_ce_bwd", "arec_torch/csrc/sampled_ce.cu",
+            "arec/kernels/sampled_softmax.py:189",
+            "arec/kernels/sampled_softmax.py:_sums_bwd_kernel",
+            trained["sampled_ce_bwd"], ce_errs["bwd"], ce_times["bwd"],
+            "N=6400 S=1024 D=128 aug",
+            "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
+            "logits, forward+backward less its forward"),
+    ]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""lstm_scan_fwd CUDA kernel vs its plain PyTorch version, on the card.
+"""lstm_scan_fwd / lstm_scan_bwd CUDA kernels vs their plain PyTorch
+versions, on the card, and the layer's gradients on CUDA tensors.
 
 Marked `cuda`: they skip where no CUDA device is present. On a machine with
 one (and no jax), run them without the jax-loading conftest:
@@ -9,7 +10,10 @@ f32 is held to rtol 1e-4 / atol 1e-5. bf16 is held to atol 1e-2 / rtol
 1e-2: both sides round h to bf16 at the same points, but their f32 sums
 run in different orders, so an h that sits on a bf16 rounding boundary can
 land one bf16 ulp (2^-8 relative) apart and carry that through later
-steps."""
+steps. The backward is held to tests/test_seq.py's gradient tolerance in
+f32 (rtol 2e-3, atol 2e-4) and to atol 2e-2 / rtol 2e-2 in bf16 (the
+gate derivatives are rounded to bf16 before both products, where an
+ulp-apart pair shifts a term by 2^-8 of its size)."""
 
 import numpy as np
 import pytest
@@ -75,3 +79,75 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         tk.lstm_layer(xw, wh, mask.cpu(), h0, c0, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         tk.lstm_layer(xw, wh, mask, h0, c0, torch.float16)
+
+
+BWD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _cotangents(L, B, H, dev, seed=1):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev) for s in ((L, B, H), (B, H))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,H", [(50, 128, 128), (50, 100, 128),
+                                   (7, 5, 32), (1, 1, 16)])
+def test_backward_kernel_matches_plain(dev, dtype, L, B, H):
+    xw, wh, mask, h0, c0 = _inputs(L, B, H, dev)
+    dh, dcT = _cotangents(L, B, H, dev)
+    got_res = tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dtype, residuals=True)
+    want_res = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dtype,
+                                   residuals=True)
+    for g, w in zip(got_res, want_res):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    hp, cp = want_res[2:]
+    before = tk.lstm_layer_bwd.launches
+    got = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dtype)
+    torch.cuda.synchronize()
+    assert tk.lstm_layer_bwd.launches == before + 1
+    want = tk.lstm_layer_bwd_plain(xw, wh, mask, hp, cp, dh, dcT, dtype)
+    for name, g, w in zip(("dxw", "dwh", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **BWD_TOL[dtype])
+    # runs repeat bit for bit (no atomics)
+    again = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dtype)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_gradients_reach_every_input_on_cuda(dev, dtype):
+    """Regression: the CUDA launch must keep the autograd graph. Under grad
+    mode lstm_layer's gradients to xw, Wh, h0 and c0 equal those of the
+    plain version (differentiated by torch autograd) on the same inputs."""
+    L, B, H = 20, 33, 64
+    xw, wh, mask, h0, c0 = _inputs(L, B, H, dev)
+    dh, dcT = _cotangents(L, B, H, dev)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (xw, wh, h0, c0)]
+        h_all, cT = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3],
+                       dtype)
+        assert h_all.grad_fn is not None and cT.grad_fn is not None
+        ((h_all * dh).sum() + (cT * dcT).sum()).backward()
+        return [t.grad for t in leaves]
+
+    fwd0, bwd0 = tk.lstm_layer.launches, tk.lstm_layer_bwd.launches
+    got = grads(tk.lstm_layer)
+    assert tk.lstm_layer.launches == fwd0 + 1
+    assert tk.lstm_layer_bwd.launches == bwd0 + 1
+    want = grads(tk.lstm_layer_plain)
+    for name, g, w in zip(("xw", "wh", "h0", "c0"), got, want):
+        assert g is not None, name
+        torch.testing.assert_close(g, w, msg=name, **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_serving_launch_under_inference_mode_keeps_no_residuals(dev):
+    xw, wh, mask, h0, c0 = _inputs(6, 4, 16, dev)
+    with torch.inference_mode():
+        out = tk.lstm_layer(xw, wh.requires_grad_(), mask, h0, c0)
+    assert len(out) == 2 and out[0].grad_fn is None
