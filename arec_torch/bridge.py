@@ -7,8 +7,8 @@ The layout is arec's, key for key and shape for shape:
                     ["item_out"]}
   MF family        {"user": {...}, "item": {...}} (encoder params each)
 
-`w` stays the fused [D_in + H, G·H] matrix with gate order i|f|g|o; it is
-never split into nn.LSTM's parameters. numpy arrays are copied, so the two
+`w` stays the fused [D_in + H, G·H] matrix with gate order i|f|g|o (LSTM)
+or r|u|n (GRU); it is never split into nn.LSTM's or nn.GRU's parameters. numpy arrays are copied, so the two
 sides never share memory; torch leaves are moved to `device` (no copy when
 they are already there).
 

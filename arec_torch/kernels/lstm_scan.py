@@ -137,29 +137,32 @@ def _check(kernel: str, dtype, xw_tm, tensors: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _dims(kernel: str, xw_tm):
-    if xw_tm.dim() != 3 or xw_tm.shape[2] % 4:
-        raise ValueError(f"xw_tm must be [L, B, 4H], got {tuple(xw_tm.shape)}")
+def _dims(kernel: str, xw_tm, gates: int):
+    """(L, B, G, H) of xw_tm [L, B, G = gates·H]; raises on another shape."""
+    if xw_tm.dim() != 3 or xw_tm.shape[2] % gates:
+        raise ValueError(f"xw_tm must be [L, B, {gates}H], got "
+                         f"{tuple(xw_tm.shape)}")
     L, B, G = xw_tm.shape
     if L < 1 or B < 1:
         raise ValueError(f"{kernel} needs L, B >= 1, got L={L}, B={B}")
-    return L, B, G, G // 4
+    return L, B, G, G // gates
 
 
-def _launch_config(kernel: str, B: int, H: int, dtype,
-                   device) -> tuple[int, bool]:
-    """(rows per CTA, Wh resident in shared memory): the fewest rows per
-    CTA that keep the grid within one wave of SMs, and Wh in shared memory
-    when it fits beside the state tiles."""
+def _launch_config(kernel: str, B: int, H: int, G: int, state_words: int,
+                   dtype, device) -> tuple[int, bool]:
+    """(rows per CTA, Wh [H, G] resident in shared memory): the fewest rows
+    per CTA that keep the grid within one wave of SMs, and Wh in shared
+    memory when it fits beside the state tiles of `state_words`·H f32 words
+    per row."""
     props = torch.cuda.get_device_properties(device)
     bt = next((b for b in _BT_CHOICES
                if -(-B // b) <= props.multi_processor_count), _BT_CHOICES[-1])
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    state = bt * _STATE_WORDS[kernel] * H * 4
+    state = bt * state_words * H * 4
     if state > limit:
         raise ValueError(f"{kernel}: H={H} needs {state} bytes of shared "
                          f"memory for its state, over the {limit} a block has")
-    wh_bytes = 4 * H * H * (2 if dtype == torch.bfloat16 else 4)
+    wh_bytes = H * G * (2 if dtype == torch.bfloat16 else 4)
     return bt, state + wh_bytes <= limit
 
 
@@ -179,13 +182,14 @@ def lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
     residuals=True also (hp, cp). Raises on anything it does not take."""
     dev = _device_of(xw_tm, KERNEL)
     wh = wh.detach().to(dtype)
-    L, B, G, H = _dims(KERNEL, xw_tm)
+    L, B, G, H = _dims(KERNEL, xw_tm, 4)
     f32 = torch.float32
     _check(KERNEL, dtype, xw_tm, {
         "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
         "mask_bm": (mask_bm, (B, L), f32), "h0": (h0, (B, H), f32),
         "c0": (c0, (B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL, B, H, dtype, dev)
+    bt, wh_in_smem = _launch_config(KERNEL, B, H, G,
+                                     _STATE_WORDS[KERNEL], dtype, dev)
     outs = [torch.empty((L, B, H), dtype=f32, device=dev),
             torch.empty((B, H), dtype=f32, device=dev)]
     if residuals:
@@ -210,14 +214,15 @@ def lstm_layer_bwd(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
     take."""
     dev = _device_of(xw_tm, KERNEL_BWD)
     wh = wh.detach().to(dtype)
-    L, B, G, H = _dims(KERNEL_BWD, xw_tm)
+    L, B, G, H = _dims(KERNEL_BWD, xw_tm, 4)
     f32 = torch.float32
     _check(KERNEL_BWD, dtype, xw_tm, {
         "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
         "mask_bm": (mask_bm, (B, L), f32), "hp": (hp, (L, B, H), f32),
         "cp": (cp, (L, B, H), f32), "dh_out": (dh_out, (L, B, H), f32),
         "dcT": (dcT, (B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, dtype, dev)
+    bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, G,
+                                     _STATE_WORDS[KERNEL_BWD], dtype, dev)
     dxw = torch.empty((L, B, G), dtype=f32, device=dev)
     dwh = torch.empty((H, G), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
@@ -283,6 +288,42 @@ lstm_layer.launches = 0       # lstm_scan_fwd launches since the last reset
 lstm_layer_bwd.launches = 0   # lstm_scan_bwd launches since the last reset
 
 
+def scan_layers(layer, layers: list[dict], x, mask, dtype, states,
+                return_states: bool, time_major: bool, dropout_gen,
+                keep_prob: float):
+    """The stacked scan around one layer kernel `layer(xw_tm, wh, mask_bm,
+    h0, c0, dtype) → (h_all, cT)`: per layer the input projection outside
+    the kernel, the kernel, and output dropout outside it (layer li drawing
+    from `fold_in(dropout_gen, li)`); the carries stay undropped. Arguments
+    as in `lstm_scan`."""
+    from arec_torch.models.seq import input_projection, output_dropout
+    from arec_torch.rng import fold_in
+
+    b = x.shape[1] if time_major else x.shape[0]
+    mask_bm = (mask.T if time_major else mask).float().contiguous()
+    h = x
+    new_states = []
+    for li, p in enumerate(layers):
+        d_in = h.shape[-1]
+        d = p["w"].shape[0] - d_in
+        xw = input_projection(p, h, dtype)                 # [..., G·H]
+        if states is not None:
+            h0, c0 = states[li]
+        else:
+            h0 = c0 = torch.zeros(b, d, device=x.device)
+        xw_tm = xw if time_major else xw.transpose(0, 1)
+        h_all, cT = layer(xw_tm.contiguous(), p["w"][d_in:], mask_bm,
+                          h0.contiguous(), c0.contiguous(), dtype)
+        new_states.append((h_all[-1], cT))                 # pre-dropout
+        h = h_all if time_major else h_all.transpose(0, 1)
+        if dropout_gen is not None:
+            h = output_dropout(h, fold_in(dropout_gen, li, h.device),
+                               keep_prob)
+    if return_states:
+        return h, new_states
+    return h
+
+
 def lstm_scan(layers: list[dict], x, mask, dtype=torch.bfloat16,
               states: list | None = None, return_states: bool = False,
               time_major: bool = False, dropout_gen=None,
@@ -295,29 +336,5 @@ def lstm_scan(layers: list[dict], x, mask, dtype=torch.bfloat16,
     `dropout_gen`/`keep_prob`: per-layer output dropout applied outside the
     kernel (`output_dropout`, layer li drawing from
     `fold_in(dropout_gen, li)`); the carries stay undropped."""
-    from arec_torch.models.seq import input_projection, output_dropout
-    from arec_torch.rng import fold_in
-
-    b = x.shape[1] if time_major else x.shape[0]
-    mask_bm = (mask.T if time_major else mask).float().contiguous()
-    h = x
-    new_states = []
-    for li, p in enumerate(layers):
-        d_in = h.shape[-1]
-        d = p["w"].shape[0] - d_in
-        xw = input_projection(p, h, dtype)                 # [..., 4H]
-        if states is not None:
-            h0, c0 = states[li]
-        else:
-            h0 = c0 = torch.zeros(b, d, device=x.device)
-        xw_tm = xw if time_major else xw.transpose(0, 1)
-        h_all, cT = lstm_layer(xw_tm.contiguous(), p["w"][d_in:], mask_bm,
-                               h0.contiguous(), c0.contiguous(), dtype)
-        new_states.append((h_all[-1], cT))                 # pre-dropout
-        h = h_all if time_major else h_all.transpose(0, 1)
-        if dropout_gen is not None:
-            h = output_dropout(h, fold_in(dropout_gen, li, h.device),
-                               keep_prob)
-    if return_states:
-        return h, new_states
-    return h
+    return scan_layers(lstm_layer, layers, x, mask, dtype, states,
+                       return_states, time_major, dropout_gen, keep_prob)

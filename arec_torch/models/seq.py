@@ -9,11 +9,12 @@ updates are masked, so pad steps are exact no-ops and the state at
 position L−1 is the state after the user's whole (truncated) history.
 
 The recurrence runs either as the plain scan below (`rnn_scan`: the
-reference the kernel is held against) or, with `use_pallas_scan` and
-`cell="lstm"`, through `arec_torch.kernels.lstm_scan` — the hand-written
-CUDA kernel for CUDA tensors. The same (xw, wh) layout serves both: the
-input projection x·Wx + b for all steps is one matmul outside the scan and
-only h·Wh is sequential.
+reference the kernels are held against) or, with `use_pallas_scan`,
+through `arec_torch.kernels.lstm_scan` (cell="lstm") or
+`arec_torch.kernels.gru_scan` (cell="gru") — the hand-written CUDA kernels
+for CUDA tensors. The same (xw, wh) layout serves all of them: the input
+projection x·Wx + b for all steps is one matmul outside the scan and only
+the h·Wh products are sequential.
 
 Training: `seq_loss` is the sampled-softmax CE over every valid position,
 with TF1 DropoutWrapper-style output dropout and fusion dropout drawn from
@@ -121,7 +122,8 @@ def _gate_count(cell: str) -> int:
 def init_seq(gen: torch.Generator, spec: SeqSpec) -> dict:
     """arec's seq param layout, shapes and scales, drawn from `gen` on
     `gen.device`: {"item_in", ["user"], "rnn": [{"w", "b"}], ["item_out"]}
-    with `w` the fused [D_in + H, G·H] matrix (gate order i|f|g|o)."""
+    with `w` the fused [D_in + H, G·H] matrix (gate order i|f|g|o for the
+    LSTM, r|u|n for the GRU)."""
     d, g = spec.dim, _gate_count(spec.cell)
     dev = gen.device
     params: dict = {"item_in": init_encoder(gen, spec.item_in)}
@@ -280,9 +282,8 @@ def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
     `states`/`return_states` expose the per-layer (h, c) carries of the
     segmented scan. `dropout_gen` (a training key, see arec_torch.rng)
     splits into the fusion-dropout and the output-dropout streams, as
-    arec's dropout_rng does. With use_pallas_scan, cell="lstm" runs the
-    CUDA kernels (their plain versions on CPU tensors); the GRU kernel is
-    not ported yet and raises rather than falling back to the plain scan."""
+    arec's dropout_rng does. With use_pallas_scan, both cells run their
+    CUDA kernels (their plain versions on CPU tensors)."""
     dev = batch["inputs"].device
     g_in = g_rnn = None
     if dropout_gen is not None and spec.keep_prob < 1.0:
@@ -290,14 +291,14 @@ def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
     x = seq_inputs(params, spec, item_dev, user_dev, batch, g_in,
                    time_major=time_major)
     mask = batch["mask"].T if time_major else batch["mask"]
-    if spec.use_pallas_scan and spec.cell == "lstm":
-        from arec_torch.kernels.lstm_scan import lstm_scan
-        return lstm_scan(params["rnn"], x, mask, dtype=spec.dtype,
-                         states=states, return_states=return_states,
-                         time_major=time_major, dropout_gen=g_rnn,
-                         keep_prob=spec.keep_prob)
-    if spec.use_pallas_scan and spec.cell == "gru":
-        raise NotImplementedError("GRU kernel: later slice")
+    if spec.use_pallas_scan:
+        if spec.cell == "lstm":
+            from arec_torch.kernels.lstm_scan import lstm_scan as scan
+        else:
+            from arec_torch.kernels.gru_scan import gru_scan as scan
+        return scan(params["rnn"], x, mask, dtype=spec.dtype, states=states,
+                    return_states=return_states, time_major=time_major,
+                    dropout_gen=g_rnn, keep_prob=spec.keep_prob)
     return rnn_scan(params["rnn"], spec.cell, x, mask, spec.dtype,
                     states=states, return_states=return_states,
                     time_major=time_major, dropout_gen=g_rnn,

@@ -4,7 +4,7 @@ batched top-K requests from raw item histories.
 
 The path is arec's: `Recommender.__init__` → item latents (pre-cast to
 the compute dtype) → per batch `_query_fn` → `seq_final_state_full` (the
-carried-state segmented scan, through the CUDA LSTM kernel with
+carried-state segmented scan, through the CUDA LSTM or GRU kernel with
 `use_pallas_scan`) → seen-masked exact top-k. Requests are padded to a
 fixed batch of `serve_batch`.
 
@@ -40,7 +40,8 @@ def _item_latents(cfg: Config, spec, params, item_dev):
 
 
 def _query_fn(spec, params, item_dev, user_dev, batch):
-    """Serving query encode: the final LSTM state after each history."""
+    """Serving query encode: the final recurrent state after each
+    history."""
     return seq_mod.seq_final_state_full(params, spec, item_dev, user_dev,
                                         batch)
 

@@ -7,10 +7,10 @@
    serving and training paths from the sources in arec_torch/csrc/ (one
    nvcc each, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (LSTM forward at the serving shape, and its
-   training launch, LSTM backward and the fused sampled-softmax CE forward
-   and backward at c4's training shape), and times kernel, plain version
-   and a library call that computes the same function (a yardstick only).
+   shapes its path gives it (the LSTM and GRU forwards at the serving
+   shapes; their training launches and backwards and the fused
+   sampled-softmax CE forward and backward at c4's training shape), and
+   times kernel, plain version and a library call (a yardstick only).
 3. Serves the c4 sequence model (configs/c4_lstm_attr_xing.json: LSTM,
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
    twin's item vocabulary (1.3M items, deg-12 tags over 4096) with seeded
@@ -24,7 +24,9 @@
    plain path on the same batch and negatives, and a two-segment step's
    carried gradient; then Recall@30 over a few `eval_batches` through the
    serving top-k.
-5. Prints one `{"kernels": [...]}` JSON line and, last, the
+5. Steps 3 and 4 again with the cell set to GRU (`model.cell=gru`, the
+   same model otherwise), through the GRU scan kernels.
+6. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -64,8 +66,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 # (2^-8 relative) apart and carry that through later steps
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
        "bfloat16": dict(rtol=1e-2, atol=1e-2)}
-# LSTM backward vs plain: f32 at tests/test_seq.py's gradient tolerance;
-# bf16 looser, as the gate derivatives are rounded before both products
+# scan backward (LSTM, GRU) vs plain: f32 at tests/test_seq.py's gradient
+# tolerance; bf16 looser, as the gate derivatives are rounded before the
+# products
 BWD_TOL = {"float32": dict(rtol=2e-3, atol=2e-4),
            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # sampled CE vs plain: f32 at tests/test_fused_softmax.py's value and
@@ -109,20 +112,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def layer_inputs(L, B, H, dev, seed=0):
+GATES = {"lstm": 4, "gru": 3}
+
+
+def layer_inputs(L, B, H, dev, seed=0, cell="lstm"):
     """xw, wh, left-padded mask (varied lengths, a few all-pad rows),
-    nonzero h0, c0 — as the serving scan hands them to one layer."""
+    nonzero h0 and, for the LSTM, c0 — as the serving scan hands them to
+    one layer."""
     import numpy as np
     import torch
+    G = GATES[cell] * H
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, L + 1, B)
     lengths[:4] = 0
     mask = np.arange(L)[None, :] >= (L - lengths)[:, None]
-    arrays = (rng.standard_normal((L, B, 4 * H)),
-              rng.standard_normal((H, 4 * H)) / math.sqrt(2 * H),
+    arrays = [rng.standard_normal((L, B, G)),
+              rng.standard_normal((H, G)) / math.sqrt(2 * H),
               mask,
-              rng.standard_normal((B, H)) * 0.5,
-              rng.standard_normal((B, H)) * 0.5)
+              rng.standard_normal((B, H)) * 0.5]
+    if cell == "lstm":
+        arrays.append(rng.standard_normal((B, H)) * 0.5)
     return [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
             for a in arrays]
 
@@ -136,29 +145,37 @@ def roofline(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def bound(L, B, H, valid, dtype):
-    """lstm_scan_fwd's roofline: each input read once and each output
-    written once, against 2·4H·H FLOPs for each valid (row, step)."""
+def bound(L, B, H, valid, dtype, cell="lstm"):
+    """The forward scan's roofline (lstm_scan_fwd, gru_scan_fwd): xw, mask,
+    the carried-in state ((h0, c0) or h0) and Wh read once, h_all (and the
+    LSTM's cT) written once, against 2·G·H FLOPs (G = 4H or 3H) for each
+    valid (row, step)."""
     welt = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * (L * B * 4 * H + B * L + 2 * B * H + L * B * H + B * H) \
-        + welt * 4 * H * H
-    return roofline(nbytes, 2 * 4 * H * H * valid, dtype)
+    G, carries = GATES[cell] * H, 2 if cell == "lstm" else 1
+    nbytes = 4 * (L * B * G + B * L + carries * B * H + L * B * H
+                  + (carries - 1) * B * H) + welt * G * H
+    return roofline(nbytes, 2 * G * H * valid, dtype)
 
 
-def bound_resid(L, B, H, valid, dtype):
-    """The training launch: lstm_scan_fwd's bytes plus hp, cp written."""
-    _, _, nbytes, flops = bound(L, B, H, valid, dtype)
-    return roofline(nbytes + 2 * 4 * L * B * H, flops, dtype)
+def bound_resid(L, B, H, valid, dtype, cell="lstm"):
+    """The training launch: the forward's bytes plus the residuals (hp, cp
+    or hp) written."""
+    _, _, nbytes, flops = bound(L, B, H, valid, dtype, cell)
+    carries = 2 if cell == "lstm" else 1
+    return roofline(nbytes + carries * 4 * L * B * H, flops, dtype)
 
 
-def bound_bwd(L, B, H, valid, dtype):
-    """lstm_scan_bwd: xw, mask, hp, cp, dh_out, dcT, Wh read; dxw, dWh,
-    dh0, dc0 written; three [., H]·[H, 4H]-sized products (gate recompute,
-    dh carry, dWh) for each valid (row, step) (pad steps add nothing)."""
+def bound_bwd(L, B, H, valid, dtype, cell="lstm"):
+    """The backward scan (lstm_scan_bwd, gru_scan_bwd): xw, mask, the
+    residuals (hp, cp or hp), dh_out, the LSTM's dcT and Wh read; dxw, dWh
+    and d(h0, c0) or dh0 written; three [., H]·[H, G]-sized products (gate
+    recompute, dh carry, dWh) for each valid (row, step) (pad steps add
+    nothing)."""
     welt = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * (2 * L * B * 4 * H + B * L + 3 * L * B * H + 3 * B * H
-                  + H * 4 * H) + welt * 4 * H * H
-    return roofline(nbytes, 3 * 2 * 4 * H * H * valid, dtype)
+    G, carries = GATES[cell] * H, 2 if cell == "lstm" else 1
+    nbytes = 4 * (2 * L * B * G + B * L + (carries + 1) * L * B * H
+                  + (2 * carries - 1) * B * H + H * G) + welt * G * H
+    return roofline(nbytes, 3 * 2 * G * H * valid, dtype)
 
 
 def bound_ce(N, S, D, Dt, dtype, backward):
@@ -448,14 +465,146 @@ def ce_phase(dev):
     return errs, times
 
 
-def load_c4(twin, cuts):
-    """c4's config on the XING twin's data section, and the prepared
-    dataset (built on first use, then read from its cache)."""
+GRU_LIBRARY = ("torch.nn.GRU (cuDNN), all-ones mask, with input "
+               "projection; it applies r after the h·W_n product, arec "
+               "before it, so it computes another function: a cost "
+               "yardstick only")
+
+
+def gru_kernel_phase(dev):
+    """gru_scan_fwd's serving launch against gru_layer_plain at the serving
+    shapes (B = 256, 200); its training launch (with hp) and gru_scan_bwd
+    against their plain versions at c4's training shape (B = 128) and a
+    ragged B = 100; all with all-pad rows and a nonzero h0. Then the times
+    of kernel, plain version and cuDNN's GRU (a yardstick only) at
+    B = 256 (serving) and B = 128 (training)."""
+    import numpy as np
+    import torch
+    from arec_torch.kernels import gru_scan as tg
+
+    L, H = 50, 128
+    errs = {"fwd": {}, "train_fwd": {}, "bwd": {}}
+
+    def note(kind, name, err):
+        errs[kind][name] = max(errs[kind].get(name, 0.0), err)
+
+    for B in (256, 200):
+        xw, wh, mask, h0 = layer_inputs(L, B, H, dev, seed=B, cell="gru")
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            got = tg.gru_layer(xw, wh, mask, h0, dt)
+            torch.cuda.synchronize()
+            want = tg.gru_layer_plain(xw, wh, mask, h0, dt)
+            torch.testing.assert_close(got, want, **TOL[name])
+            note("fwd", name, max_err([got], [want]))
+            log(f"kernel vs plain  B={B} L={L} H={H} {name}: gru_scan_fwd "
+                f"max abs err {max_err([got], [want]):.3e} (tolerance "
+                f"{TOL[name]})")
+
+    def operands(B):
+        rng = np.random.default_rng(B + 7)
+        dh = torch.from_numpy(rng.standard_normal((L, B, H))
+                              .astype(np.float32)).to(dev)
+        return layer_inputs(L, B, H, dev, seed=B + 1, cell="gru") + [dh]
+
+    for B in (128, 100):
+        xw, wh, mask, h0, dh = operands(B)
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            got = tg.gru_scan_fwd(xw, wh, mask, h0, dt, residuals=True)
+            torch.cuda.synchronize()
+            want = tg.gru_layer_plain(xw, wh, mask, h0, dt, residuals=True)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **TOL[name])
+            e_f = max_err(got, want)
+            hp = want[1]
+            got = tg.gru_layer_bwd(xw, wh, mask, hp, dh, dt)
+            torch.cuda.synchronize()
+            want = tg.gru_layer_bwd_plain(xw, wh, mask, hp, dh, dt)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **BWD_TOL[name])
+            again = tg.gru_layer_bwd(xw, wh, mask, hp, dh, dt)
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+                "gru_scan_bwd does not repeat bit for bit")
+            e_b = max_err(got, want)
+            note("train_fwd", name, e_f)
+            note("bwd", name, e_b)
+            log(f"kernel vs plain  B={B} L={L} H={H} {name}: GRU training "
+                f"forward (h_all, hp) max abs err {e_f:.3e} (tolerance "
+                f"{TOL[name]}); gru_scan_bwd (dxw, dWh, dh0) max abs err "
+                f"{e_b:.3e} (tolerance {BWD_TOL[name]}), repeats bit for "
+                f"bit")
+
+    times = {"fwd": {}, "train_fwd": {}, "bwd": {}}
+    xw, wh, mask, h0 = layer_inputs(L, 256, H, dev, seed=256, cell="gru")
+    valid = int(mask.sum())
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        times["fwd"][name] = dict(
+            ms=cuda_ms(lambda: tg.gru_layer(xw, wh, mask, h0, dt), 50),
+            plain_ms=cuda_ms(
+                lambda: tg.gru_layer_plain(xw, wh, mask, h0, dt), 10),
+            **dict(zip(BOUND_KEYS, bound(L, 256, H, valid, name, "gru"))))
+    B = 128
+    txw, twh, tmask, th0, dh = operands(B)
+    tvalid = int(tmask.sum())
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        hp = tg.gru_layer_plain(txw, twh, tmask, th0, dt, residuals=True)[1]
+        times["train_fwd"][name] = dict(
+            ms=cuda_ms(lambda: tg.gru_scan_fwd(txw, twh, tmask, th0, dt,
+                                               residuals=True), 50),
+            plain_ms=cuda_ms(lambda: tg.gru_layer_plain(
+                txw, twh, tmask, th0, dt, residuals=True), 10),
+            **dict(zip(BOUND_KEYS, bound_resid(L, B, H, tvalid, name,
+                                               "gru"))))
+        times["bwd"][name] = dict(
+            ms=cuda_ms(lambda: tg.gru_layer_bwd(txw, twh, tmask, hp, dh, dt),
+                       50),
+            plain_ms=cuda_ms(lambda: tg.gru_layer_bwd_plain(
+                txw, twh, tmask, hp, dh, dt), 5),
+            **dict(zip(BOUND_KEYS, bound_bwd(L, B, H, tvalid, name,
+                                             "gru"))))
+
+    # yardstick: cuDNN's GRU on the same [L, B, H] sequences (all-ones
+    # mask, its own input projection included): its serving forward at
+    # B = 256; at B = 128 its training forward, and its forward + backward
+    # less that forward
+    torch.backends.cudnn.allow_tf32 = False
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        gru = torch.nn.GRU(H, H, device=dev, dtype=dt)
+        gru.flatten_parameters()
+        xs, st = torch.randn(L, 256, H, device=dev, dtype=dt), h0[None].to(dt)
+        with torch.inference_mode():
+            times["fwd"][name]["library_ms"] = cuda_ms(lambda: gru(xs, st),
+                                                       50)
+        xs = torch.randn(L, B, H, device=dev, dtype=dt).requires_grad_()
+        st, g = th0[None].to(dt), dh.to(dt)
+        fwd = cuda_ms(lambda: gru(xs, st), 20)
+        both = cuda_ms(lambda: gru(xs, st)[0].backward(g), 20)
+        times["train_fwd"][name]["library_ms"] = fwd
+        times["bwd"][name]["library_ms"] = both - fwd
+    for name in DTYPES:
+        report("gru_scan_fwd", f"B=256 L={L} H={H}", name,
+               times["fwd"][name], GRU_LIBRARY + ", serving forward")
+        report("gru_scan_fwd (training launch, with hp)", f"B={B} L={L} "
+               f"H={H}", name, times["train_fwd"][name],
+               GRU_LIBRARY + ", training forward")
+        report("gru_scan_bwd", f"B={B} L={L} H={H}", name, times["bwd"][name],
+               GRU_LIBRARY + ", forward+backward less its forward")
+    return errs, times
+
+
+def load_c4(twin, cuts, cell="lstm"):
+    """c4's config on the XING twin's data section, with the recurrent cell
+    set to `cell`, and the prepared dataset (built on first use, then read
+    from its cache)."""
     from arec_torch.cli.main import load_config, parse_args
     from arec_torch.data.io import load_or_prepare
 
     sets = {**twin, **{k: v for k, (_, v) in cuts.items()},
-            "data.data_dir": DATA_DIR}
+            "data.data_dir": DATA_DIR, "model.cell": cell}
     argv = ["--config", C4] + [a for k, v in sets.items()
                                for a in ("--set", f"{k}={v}")]
     cfg = load_config(parse_args(argv))
@@ -485,17 +634,32 @@ def device_breakdown(what, fn):
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
 
-def slice_phase(dev, twin=TWIN, cuts=CUTS):
-    """c4 at the XING twin's vocabulary, served through the port's entry
-    points; returns the kernel launches of the served run."""
+def scan_counters(cell):
+    """{kernel name: the wrapper whose `launches` counts it} of the scan
+    kernels of `cell`, and of the other cell's (which its runs must not
+    launch)."""
+    from arec_torch.kernels import gru_scan as tg
+    from arec_torch.kernels import lstm_scan as tk
+    both = {"lstm": {tk.KERNEL: tk.lstm_layer,
+                     tk.KERNEL_BWD: tk.lstm_layer_bwd},
+            "gru": {tg.KERNEL: tg.gru_layer,
+                    tg.KERNEL_BWD: tg.gru_layer_bwd}}
+    return both[cell], both["gru" if cell == "lstm" else "lstm"]
+
+
+def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
+    """c4 (with the recurrent cell set to `cell`) at the XING twin's
+    vocabulary, served through the port's entry points; returns the scan
+    kernel's launches of the served run."""
     import numpy as np
     import torch
-    from arec_torch.kernels import lstm_scan as tk
     from arec_torch.models.seq import SeqSpec, init_seq
     from arec_torch.serve import Recommender, _item_latents, _query_fn
     from arec_torch.serve import _serve_loop
 
-    cfg, ds, prep_s = load_c4(twin, cuts)
+    scans, others = scan_counters(cell)
+    (fwd_name, fwd), _ = scans.items()               # forward, backward
+    cfg, ds, prep_s = load_c4(twin, cuts, cell)
     log("reduced: " + ", ".join(f"{k} {a} -> {b}"
                                 for k, (a, b) in cuts.items())
         + " (no served tensor depends on them)")
@@ -503,11 +667,11 @@ def slice_phase(dev, twin=TWIN, cuts=CUTS):
     V, L = spec.vocab, spec.max_seq_len
     assert V == twin["data.syn_items"] and spec.dim == 128 and L == 50, (
         V, spec.dim, L)
-    assert spec.use_pallas_scan and spec.cell == "lstm"
+    assert spec.use_pallas_scan and spec.cell == cell
     params = init_seq(torch.Generator(device=dev).manual_seed(0), spec)
     nparam = sum(t.numel() for t in (
         params["item_in"]["tables"]["__fused__"], params["item_out"]))
-    log(f"c4 on the XING twin: V={V} H={spec.dim} L={L} layers="
+    log(f"c4 ({cell}) on the XING twin: V={V} H={spec.dim} L={L} layers="
         f"{spec.num_layers} item fields "
         f"{[f.name for f in spec.item_in.schema.fields]}, dense "
         f"{[f.name for f in spec.item_in.dense_fields]}; "
@@ -532,16 +696,18 @@ def slice_phase(dev, twin=TWIN, cuts=CUTS):
     rec.from_histories(hists, seen=seen)             # first call: warm-up
     first_s = time.perf_counter() - t0
 
-    tk.lstm_layer.launches = 0                       # ---- the main path
+    for f in (fwd, *others.values()):                # ---- the main path
+        f.launches = 0
     t0 = time.perf_counter()
     ids = rec.from_histories(hists, seen=seen)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    batch_launches = tk.lstm_layer.launches
+    batch_launches = fwd.launches
     lines = [",".join(map(str, rng.integers(0, V, n).tolist()))
              for n in (3, 40, 17)]
     out = io.StringIO()
     _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
-    launches = tk.lstm_layer.launches                # ---- read just after
+    launches = fwd.launches                          # ---- read just after
+    assert not any(f.launches for f in others.values()), others
 
     assert ids.shape == (len(hists), 30), ids.shape
     assert ((ids >= 0) & (ids < V)).all()
@@ -577,10 +743,10 @@ def slice_phase(dev, twin=TWIN, cuts=CUTS):
     log(f"startup {startup_s:.3f} s (from the prepared cache), item-latent "
         f"encode {enc_ms:.3f} ms, first batch {first_s:.3f} s, batch of "
         f"{len(hists)} requests padded to 256: {batch_ms:.3f} ms; "
-        f"lstm_scan_fwd launches {launches}")
+        f"{fwd_name} launches {launches}")
 
     # where one served batch's time goes: device time by kernel name
-    device_breakdown("one served batch",
+    device_breakdown(f"one served batch ({cell})",
                      lambda: rec.from_histories(hists, seen=seen))
     return launches
 
@@ -591,16 +757,16 @@ def grad_gap(got, want):
                for g, w in zip(got, want))
 
 
-def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
-    """c4 trained on the XING twin through the port's train step: batches
-    from `seq_batches`, `make_train_step` with Adagrad and dense table
-    updates, each step's key from `step_generator`. Returns the launches
-    of each kernel over the counted steps."""
+def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
+    """c4 (with the recurrent cell set to `cell`) trained on the XING twin
+    through the port's train step: batches from `seq_batches`,
+    `make_train_step` with Adagrad and dense table updates, each step's key
+    from `step_generator`. Returns the launches of each kernel over the
+    counted steps."""
     import itertools
 
     import torch
     from arec_torch.data.dataset import eval_batches, seq_batches
-    from arec_torch.kernels import lstm_scan as tk
     from arec_torch.kernels import sampled_softmax as tks
     from arec_torch.losses.sampling import draw
     from arec_torch.models.seq import (SeqSpec, init_seq, seq_item_latents,
@@ -613,11 +779,11 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
                                        make_train_step, step_generator,
                                        tree_map)
 
-    cfg, ds, _ = load_c4(twin, cuts)
+    cfg, ds, _ = load_c4(twin, cuts, cell)
     tc = cfg.train
     spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
-    assert (spec.vocab, spec.dim, spec.pack_len, spec.num_sampled) == (
-        twin["data.syn_items"], 128, 50, 1024), spec
+    assert (spec.vocab, spec.dim, spec.pack_len, spec.num_sampled,
+            spec.cell) == (twin["data.syn_items"], 128, 50, 1024, cell), spec
     assert (tc.optimizer, tc.batch_size, tc.sparse_update) == (
         "adagrad", 128, False), tc
     item_dev = attrs_to_device(ds.item_attrs.restrict(spec.item_in.schema),
@@ -647,10 +813,11 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
 
-    counters = {tk.KERNEL: tk.lstm_layer, tk.KERNEL_BWD: tk.lstm_layer_bwd,
-                "sampled_ce_fwd": tks.sampled_ce_fwd,
+    scans, others = scan_counters(cell)
+    fwd_name, bwd_name = scans
+    counters = {**scans, "sampled_ce_fwd": tks.sampled_ce_fwd,
                 "sampled_ce_bwd": tks.sampled_ce_bwd}
-    for fn in counters.values():                     # ---- the main path
+    for fn in (*counters.values(), *others.values()):  # ---- the main path
         fn.launches = 0
     metrics = []
     t0 = time.perf_counter()
@@ -661,11 +828,12 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     wall_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     # ---- read just after
+    assert not any(f.launches for f in others.values()), others
     per_step = spec.num_layers * spec.train_segments
     recompute = 2 if spec.train_segments > 1 else 1   # checkpointed segments
     assert launches == {
-        tk.KERNEL: steps * per_step * recompute,
-        tk.KERNEL_BWD: steps * per_step,
+        fwd_name: steps * per_step * recompute,
+        bwd_name: steps * per_step,
         "sampled_ce_fwd": steps, "sampled_ce_bwd": steps}, launches
 
     loss = torch.stack([m["loss"] for m in metrics]).cpu()
@@ -675,7 +843,7 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     assert all(torch.isfinite(t).all() for t in _leaves(state.params))
     positions = sum(float(b["mask"].sum()) for b in host[1:steps + 1])
     step_ms = wall_s / steps * 1e3
-    log(f"trained c4 on the XING twin (V={spec.vocab}, {n_params} "
+    log(f"trained c4 ({cell}) on the XING twin (V={spec.vocab}, {n_params} "
         f"parameters, Adagrad lr {tc.learning_rate}, dense updates, batch "
         f"{tc.batch_size}, S={spec.num_sampled}): first step "
         f"{first_s:.3f} s, then {steps} steps: loss {float(loss[0]):.4f} -> "
@@ -689,7 +857,7 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
 
     b = on_dev(host[steps + 1])
     gen = step_generator(tc.seed, steps + 1)
-    device_breakdown("one train step",
+    device_breakdown(f"one train step ({cell})",
                      lambda: step(state, b, gen))
 
     # one step's gradients, kernel path vs plain path (plain scan, pure CE),
@@ -728,8 +896,8 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     seg_launches = {k: fn.launches - before[k] for k, fn in counters.items()}
     l_1, g_1 = grads(one, True)
     gap = grad_gap(g_2, g_1)
-    assert seg_launches[tk.KERNEL] == 2 * 2 * spec.num_layers, seg_launches
-    assert seg_launches[tk.KERNEL_BWD] == 2 * spec.num_layers, seg_launches
+    assert seg_launches[fwd_name] == 2 * 2 * spec.num_layers, seg_launches
+    assert seg_launches[bwd_name] == 2 * spec.num_layers, seg_launches
     assert abs(float(l_2 / l_1) - 1.0) < 1e-5, (float(l_2), float(l_1))
     assert gap <= SEG_GRAD_TOL, gap
     log(f"two segments of L={two.max_seq_len} vs one pass of "
@@ -755,9 +923,19 @@ def train_phase(dev, twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
             hits, total, n = hits + float(h), total + float(t), n + 1
     recall = hits / max(total, 1.0)
     assert n == EVAL_BATCHES and 0.0 <= recall <= 1.0, (n, recall)
-    log(f"Recall@{k} after {steps + 1} steps over {n} eval batches "
+    log(f"Recall@{k} ({cell}) after {steps + 1} steps over {n} eval batches "
         f"({int(total)} held-out rows): {recall:.4f}")
     return launches
+
+
+def free():
+    """Drop the last phase's model, tables and optimizer state from the
+    card before the next phase builds its own."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -771,6 +949,7 @@ def main() -> int:
         return 2
     try:
         from arec_torch.kernels import _build, lstm_scan as tk
+        from arec_torch.kernels import gru_scan as tg
         from arec_torch.kernels import sampled_softmax as tks
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -787,7 +966,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL])
+    reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL,
+                            tg.KERNEL, tg.KERNEL_BWD])
     log(f"built {sorted(reports) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
@@ -798,8 +978,13 @@ def main() -> int:
     errs, times = kernel_phase(dev)
     lstm_errs, lstm_times = lstm_train_phase(dev)
     ce_errs, ce_times = ce_phase(dev)
-    served = slice_phase(dev)
-    trained = train_phase(dev)
+    gru_errs, gru_times = gru_kernel_phase(dev)
+    served, trained = {}, {}
+    for cell in ("lstm", "gru"):
+        served[cell] = slice_phase(dev, cell)
+        free()
+        trained[cell] = train_phase(dev, cell)
+        free()
 
     def row(name, source, replaces, fn, launches, err, t, shape, library):
         # c4 computes in bfloat16: the row's numbers are bf16, the f32
@@ -817,47 +1002,71 @@ def main() -> int:
                 "library": library, "dtype": "bfloat16", "shape": shape,
                 "f32": {k: t["float32"][k] for k in keys}}
 
-    fwd = row(tk.KERNEL, "arec_torch/csrc/lstm_scan_fwd.cu",
-              "arec/kernels/lstm_scan.py:89",
-              "arec/kernels/lstm_scan.py:_fwd_kernel",
-              served + trained[tk.KERNEL], errs, times, "L=50 B=256 H=128",
-              "torch.nn.LSTM (cuDNN), all-ones mask, bf16, weights "
-              "compacted per call")
-    fwd.update(launches_serving=served,
-               launches_training=trained[tk.KERNEL],
-               training_launch={
-                   "shape": "L=50 B=128 H=128, with hp/cp residuals",
-                   "max_err_f32": lstm_errs["fwd"]["float32"],
-                   "max_err_bf16": lstm_errs["fwd"]["bfloat16"],
-                   "library": "torch.nn.LSTM (cuDNN) training forward, "
-                              "all-ones mask",
-                   **{dt: {k: lstm_times["fwd"][dt][k] for k in
-                           ("ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms")} for dt in DTYPES}})
+    def fwd_row(name, source, replaces, fn, cell, err, t, train_err,
+                train_t, library, train_library, residuals):
+        out = row(name, source, replaces, fn,
+                  served[cell] + trained[cell][name], err, t,
+                  "L=50 B=256 H=128", library)
+        out.update(launches_serving=served[cell],
+                   launches_training=trained[cell][name],
+                   training_launch={
+                       "shape": f"L=50 B=128 H=128, with {residuals} "
+                                f"residuals",
+                       "max_err_f32": train_err["float32"],
+                       "max_err_bf16": train_err["bfloat16"],
+                       "library": train_library,
+                       **{dt: {k: train_t[dt][k] for k in
+                               ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")} for dt in DTYPES}})
+        return out
+
+    def ce_row(name, line, fn, err, t, library):
+        out = row(name, "arec_torch/csrc/sampled_ce.cu",
+                  f"arec/kernels/sampled_softmax.py:{line}",
+                  f"arec/kernels/sampled_softmax.py:{fn}",
+                  sum(trained[c][name] for c in trained), err, t,
+                  "N=6400 S=1024 D=128 aug", library)
+        out["launches_training"] = {c: trained[c][name] for c in trained}
+        return out
+
     kernels = [
-        fwd,
+        fwd_row(tk.KERNEL, "arec_torch/csrc/lstm_scan_fwd.cu",
+                "arec/kernels/lstm_scan.py:89",
+                "arec/kernels/lstm_scan.py:_fwd_kernel", "lstm", errs, times,
+                lstm_errs["fwd"], lstm_times["fwd"],
+                "torch.nn.LSTM (cuDNN), all-ones mask, bf16, weights "
+                "compacted per call",
+                "torch.nn.LSTM (cuDNN) training forward, all-ones mask",
+                "hp/cp"),
         row(tk.KERNEL_BWD, "arec_torch/csrc/lstm_scan_bwd.cu",
             "arec/kernels/lstm_scan.py:182",
             "arec/kernels/lstm_scan.py:_bwd_kernel",
-            trained[tk.KERNEL_BWD], lstm_errs["bwd"], lstm_times["bwd"],
-            "L=50 B=128 H=128",
+            trained["lstm"][tk.KERNEL_BWD], lstm_errs["bwd"],
+            lstm_times["bwd"], "L=50 B=128 H=128",
             "torch.nn.LSTM (cuDNN) forward+backward less its forward, "
             "all-ones mask"),
-        row("sampled_ce_fwd", "arec_torch/csrc/sampled_ce.cu",
-            "arec/kernels/sampled_softmax.py:146",
-            "arec/kernels/sampled_softmax.py:_sums_fwd_kernel",
-            trained["sampled_ce_fwd"], ce_errs["fwd"], ce_times["fwd"],
-            "N=6400 S=1024 D=128 aug",
-            "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
-            "logits, forward"),
-        row("sampled_ce_bwd", "arec_torch/csrc/sampled_ce.cu",
-            "arec/kernels/sampled_softmax.py:189",
-            "arec/kernels/sampled_softmax.py:_sums_bwd_kernel",
-            trained["sampled_ce_bwd"], ce_errs["bwd"], ce_times["bwd"],
-            "N=6400 S=1024 D=128 aug",
-            "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
-            "logits, forward+backward less its forward"),
+        ce_row("sampled_ce_fwd", 146, "_sums_fwd_kernel", ce_errs["fwd"],
+               ce_times["fwd"], "torch.matmul + F.cross_entropy over "
+               "materialised [N, 1+S] logits, forward"),
+        ce_row("sampled_ce_bwd", 189, "_sums_bwd_kernel", ce_errs["bwd"],
+               ce_times["bwd"], "torch.matmul + F.cross_entropy over "
+               "materialised [N, 1+S] logits, forward+backward less its "
+               "forward"),
+        fwd_row(tg.KERNEL, "arec_torch/csrc/gru_scan_fwd.cu",
+                "arec/kernels/gru_scan.py:38",
+                "arec/kernels/gru_scan.py:_fwd_kernel", "gru",
+                gru_errs["fwd"], gru_times["fwd"], gru_errs["train_fwd"],
+                gru_times["train_fwd"], GRU_LIBRARY + ", serving forward",
+                GRU_LIBRARY + ", training forward", "hp"),
+        row(tg.KERNEL_BWD, "arec_torch/csrc/gru_scan_bwd.cu",
+            "arec/kernels/gru_scan.py:117",
+            "arec/kernels/gru_scan.py:_bwd_kernel",
+            trained["gru"][tg.KERNEL_BWD], gru_errs["bwd"], gru_times["bwd"],
+            "L=50 B=128 H=128",
+            GRU_LIBRARY + ", forward+backward less its forward"),
     ]
+    assert all(k["launches"] > 0 for k in kernels), [
+        (k["name"], k["launches"]) for k in kernels]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,146 @@
+"""gru_scan_fwd / gru_scan_bwd CUDA kernels vs their plain PyTorch versions,
+on the card, and the layer's gradients on CUDA tensors.
+
+Marked `cuda`: they skip where no CUDA device is present. On a machine with
+one (and no jax), run them without the jax-loading conftest:
+
+    python -m pytest tests/test_torch_gru_scan_cuda.py --noconftest -q
+
+Tolerances are those of tests/test_torch_lstm_scan_cuda.py, for the same
+reasons: f32 forward rtol 1e-4 / atol 1e-5; bf16 forward 1e-2 / 1e-2 (both
+sides round h and r⊙h to bf16 at the same points but sum in different
+orders, so a value on a rounding boundary can land one bf16 ulp apart and
+carry that through later steps); the backward at tests/test_seq.py's
+gradient tolerance in f32 (rtol 2e-3, atol 2e-4) and 2e-2 / 2e-2 in bf16
+(the gate derivatives are rounded to bf16 before the products)."""
+
+import numpy as np
+import pytest
+import torch
+
+from arec_torch.kernels import gru_scan as tg
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+       torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+BWD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(L, B, H, dev, seed=0):
+    """xw, wh, a left-padded mask with a few all-pad rows, a nonzero h0 and
+    a cotangent of h_all."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, L + 1, B)
+    lengths[: min(B, 3)] = 0
+    lengths[-1] = L
+    mask = (np.arange(L)[None, :] >= (L - lengths)[:, None])
+    arrays = (rng.standard_normal((L, B, 3 * H)),
+              rng.standard_normal((H, 3 * H)) / np.sqrt(2 * H),
+              mask,
+              rng.standard_normal((B, H)) * 0.5,
+              rng.standard_normal((L, B, H)))
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,H", [(50, 256, 128), (50, 200, 128),
+                                   (50, 128, 128), (50, 100, 128),
+                                   (7, 5, 32), (1, 1, 16)])
+def test_kernel_matches_plain(dev, dtype, L, B, H):
+    xw, wh, mask, h0, _ = _inputs(L, B, H, dev)
+    before = tg.gru_layer.launches
+    got = tg.gru_layer(xw, wh, mask, h0, dtype)
+    torch.cuda.synchronize()
+    assert tg.gru_layer.launches == before + 1
+    want = tg.gru_layer_plain(xw, wh, mask, h0, dtype)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    # all-pad rows keep their carried-in state exactly
+    pad = mask.sum(dim=1) == 0
+    assert torch.equal(got[:, pad], h0[pad].expand(L, -1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,H", [(50, 128, 128), (50, 100, 128),
+                                   (7, 5, 32), (1, 1, 16)])
+def test_backward_kernel_matches_plain(dev, dtype, L, B, H):
+    xw, wh, mask, h0, dh = _inputs(L, B, H, dev)
+    got_res = tg.gru_scan_fwd(xw, wh, mask, h0, dtype, residuals=True)
+    want_res = tg.gru_layer_plain(xw, wh, mask, h0, dtype, residuals=True)
+    for g, w in zip(got_res, want_res):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    hp = want_res[1]
+    before = tg.gru_layer_bwd.launches
+    got = tg.gru_layer_bwd(xw, wh, mask, hp, dh, dtype)
+    torch.cuda.synchronize()
+    assert tg.gru_layer_bwd.launches == before + 1
+    want = tg.gru_layer_bwd_plain(xw, wh, mask, hp, dh, dtype)
+    for name, g, w in zip(("dxw", "dwh", "dh0"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **BWD_TOL[dtype])
+    # runs repeat bit for bit (no atomics)
+    again = tg.gru_layer_bwd(xw, wh, mask, hp, dh, dtype)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(dev):
+    xw, wh, mask, h0, dh = _inputs(4, 3, 16, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.gru_layer(xw.transpose(0, 1).contiguous().transpose(0, 1), wh,
+                     mask, h0, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        tg.gru_layer(xw, wh, mask.double(), h0, torch.float32)
+    with pytest.raises(ValueError, match="is on"):
+        tg.gru_layer(xw, wh, mask.cpu(), h0, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        tg.gru_layer(xw, wh, mask, h0, torch.float16)
+    with pytest.raises(ValueError, match="3H"):
+        tg.gru_layer(xw[..., :-1].contiguous(), wh, mask, h0, torch.float32)
+    with pytest.raises(ValueError, match="must be"):
+        tg.gru_layer_bwd(xw, wh, mask, dh[:, :2].contiguous(), dh,
+                         torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_gradients_reach_every_input_on_cuda(dev, dtype):
+    """Under grad mode gru_layer's gradients to xw, Wh and h0 equal those
+    of the plain version (differentiated by torch autograd) on the same
+    inputs."""
+    L, B, H = 20, 33, 64
+    xw, wh, mask, h0, dh = _inputs(L, B, H, dev)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (xw, wh, h0)]
+        h_all = fn(leaves[0], leaves[1], mask, leaves[2], dtype)
+        assert h_all.grad_fn is not None
+        (h_all * dh).sum().backward()
+        return [t.grad for t in leaves]
+
+    fwd0, bwd0 = tg.gru_layer.launches, tg.gru_layer_bwd.launches
+    got = grads(tg.gru_layer)
+    assert tg.gru_layer.launches == fwd0 + 1
+    assert tg.gru_layer_bwd.launches == bwd0 + 1
+    want = grads(tg.gru_layer_plain)
+    for name, g, w in zip(("xw", "wh", "h0"), got, want):
+        assert g is not None, name
+        torch.testing.assert_close(g, w, msg=name, **BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_serving_launch_under_inference_mode_keeps_no_residuals(dev):
+    xw, wh, mask, h0, _ = _inputs(6, 4, 16, dev)
+    with torch.inference_mode():
+        out = tg.gru_layer(xw, wh.requires_grad_(), mask, h0)
+    assert out.shape == (6, 4, 16) and out.grad_fn is None

@@ -57,8 +57,8 @@ _CHILD = textwrap.dedent("""
     cfg = Config(
         data=DataConfig(data_dir=sys.argv[1], syn_users=60, syn_items=50,
                         syn_interactions=600),
-        model=ModelConfig(model="lstm", dim=8, max_seq_len=6,
-                          use_pallas_scan=True),
+        model=ModelConfig(model="lstm", cell=sys.argv[2], dim=8,
+                          max_seq_len=6, use_pallas_scan=True),
         train=TrainConfig(compute_dtype="float32"))
     ds = load_or_prepare(cfg.data)
     spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
@@ -72,13 +72,23 @@ _CHILD = textwrap.dedent("""
 """)
 
 
-def test_serves_with_jax_and_arec_blocked(tmp_path):
+def _serve_blocked(tmp_path, cell):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path), cell],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("served")
+
+
+def test_serves_with_jax_and_arec_blocked(tmp_path):
+    _serve_blocked(tmp_path, "lstm")
+
+
+def test_serves_gru_with_jax_and_arec_blocked(tmp_path):
+    """The GRU kernel path (its plain versions on the CPU) also stands
+    alone."""
+    _serve_blocked(tmp_path, "gru")
 
 
 def test_recommender_without_device_refuses_cpu_fallback(monkeypatch):

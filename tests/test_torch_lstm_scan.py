@@ -179,17 +179,39 @@ def test_plain_rnn_scan_matches_arec(cell):
 
 
 def test_gru_kernel_path_raises_instead_of_falling_back():
+    """seq_hidden's GRU kernel path goes through the GRU kernel wrapper:
+    on CPU tensors its plain versions, with no launch, matching arec's
+    Pallas GRU scan; on a device it cannot launch on it raises rather than
+    falling back to the plain scan."""
+    from arec.kernels.gru_scan import pallas_gru_scan
     from arec_torch.data.schema import AttributeData, EntitySchema
+    from arec_torch.kernels import gru_scan as tg
     from arec_torch.tables.engine import EncoderSpec, attrs_to_device
 
     schema = EntitySchema("item", 10, (EntitySchema.id_field("item", 10),))
     spec = tseq.SeqSpec(item_in=EncoderSpec(schema, D), user=None,
-                        cell="gru", use_pallas_scan=True)
+                        cell="gru", use_pallas_scan=True,
+                        compute_dtype="float32")
     params = tseq.init_seq(torch.Generator().manual_seed(0), spec)
     item_dev = attrs_to_device(
         AttributeData(schema, AttributeData.id_identity(schema)),
         spec.item_in)
-    batch = {"inputs": torch.zeros(2, 4, dtype=torch.int32),
-             "mask": torch.ones(2, 4)}
-    with pytest.raises(NotImplementedError, match="GRU kernel"):
-        tseq.seq_hidden(params, spec, item_dev, None, batch)
+    rng = np.random.default_rng(8)
+    batch = {"inputs": torch.from_numpy(
+                 rng.integers(0, 10, (3, 5)).astype(np.int32)),
+             "mask": torch.from_numpy(_mask(rng, 3, 5))}
+    before = tk.lstm_layer.launches, tg.gru_layer.launches
+    got = tseq.seq_hidden(params, spec, item_dev, None, batch)
+    assert (tk.lstm_layer.launches, tg.gru_layer.launches) == before
+    x = tseq.seq_inputs(params, spec, item_dev, None, batch)
+    want = pallas_gru_scan(
+        [{k: jnp.asarray(v.numpy()) for k, v in p.items()}
+         for p in params["rnn"]], jnp.asarray(x.numpy()),
+        jnp.asarray(batch["mask"].numpy()), dtype=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    meta = {"w": params["rnn"][0]["w"].to("meta"),
+            "b": params["rnn"][0]["b"].to("meta")}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tg.gru_scan([meta], x.to("meta"), batch["mask"].to("meta"),
+                    dtype=torch.float32)

@@ -4,8 +4,8 @@ carried state) and the item latents (`seq_item_latents`), for the model
 variants the configs allow — attributes or ids only, the kernel path
 (`use_pallas_scan`: arec's Pallas kernel in interpret mode, the port's
 wrapper taking its plain version on the CPU) or the plain scan, two
-layers with the user embedding, a tied output table, GRU, and bf16
-train-path activations. Weights are arec's init, handed over through the
+layers with the user embedding, a tied output table, GRU (plain and
+kernel path), and bf16 train-path activations. Weights are arec's init, handed over through the
 bridge; inputs are numpy-seeded."""
 
 import dataclasses
@@ -38,6 +38,7 @@ VARIANTS = {
     "tied_nonlinear_plain": dict(tie_output=True, nonlinear=True,
                                  use_pallas_scan=False),
     "gru_plain": dict(cell="gru", use_pallas_scan=False),
+    "gru_kernel": dict(cell="gru", use_pallas_scan=True),
     "act_bf16_kernel": dict(use_pallas_scan=True),
 }
 # f32 everywhere: tests/test_seq.py's forward tolerance. bf16 train-path

@@ -1,6 +1,6 @@
 """arec_torch sequence training vs arec's: `seq_loss` value and gradients
-to every parameter on a small syn_lstm model (attribute fusion), for the
-kernel path (arec: Pallas scan + fused CE in interpret mode; the port: its
+to every parameter on a small syn_lstm model (attribute fusion; LSTM, and
+GRU on the kernel path), for the kernel path (arec: Pallas scan + fused CE in interpret mode; the port: its
 autograd Functions, taking their plain versions on the CPU) and the plain
 path, one and two train segments, tied and untied output, pre-drawn
 negatives, keep_prob = 1; and 20 `make_train_step` Adagrad steps from
@@ -79,6 +79,13 @@ VARIANTS = {
     "plain_2seg_tied": dict(model=dict(use_pallas_scan=False,
                                        train_segments=2, tie_output=True),
                             use_kernel=False, time_major=True),
+    "gru_kernel_1seg_untied": dict(model=dict(cell="gru",
+                                              use_pallas_scan=True),
+                                   use_kernel=True, time_major=True),
+    "gru_kernel_2seg_tied": dict(model=dict(cell="gru", use_pallas_scan=True,
+                                            train_segments=2,
+                                            tie_output=True),
+                                 use_kernel=True, time_major=False),
 }
 
 

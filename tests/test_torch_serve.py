@@ -1,11 +1,11 @@
 """The slice as a whole: arec_torch's `Recommender.from_histories` against
-arec's, on the same trained weights.
+arec's, on the same trained weights, for both cells.
 
-A tiny attribute-aware LSTM is trained with arec's Trainer (plain scan, f32,
-as tests/test_serve.py does). arec's Recommender then serves it with
-`use_pallas_scan=True`, so its queries run the Pallas forward kernel
-(interpret mode on the CPU), and the weights go through the bridge into the
-port's Recommender on the CPU. Query states are held to rtol 1e-4 /
+A tiny attribute-aware LSTM or GRU is trained with arec's Trainer (plain
+scan, f32, as tests/test_serve.py does). arec's Recommender then serves it
+with `use_pallas_scan=True`, so its queries run the Pallas forward kernel
+of that cell (interpret mode on the CPU), and the weights go through the
+bridge into the port's Recommender on the CPU. Query states are held to rtol 1e-4 /
 atol 1e-5 (tests/test_seq.py's forward tolerance); ids are equal up to
 ties (torch_topk_check)."""
 
@@ -30,15 +30,16 @@ torch.set_num_threads(1)
 SERVE_BATCH = 16
 
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("slice")
+@pytest.fixture(scope="module", params=["lstm", "gru"])
+def served(request, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp(f"slice_{request.param}")
     cfg = Config(
         data=DataConfig(dataset="synthetic", data_dir=str(tmp / "d"),
                         syn_users=300, syn_items=250, syn_interactions=8000),
         # threshold 16: item ids take the identity gather, genres the
         # gathered mulhot, category/year the dense map
-        model=ModelConfig(model="lstm", dim=16, use_attributes=True,
+        model=ModelConfig(model="lstm", cell=request.param, dim=16,
+                          use_attributes=True,
                           max_seq_len=8, use_pallas_scan=False,
                           dense_vocab_threshold=16),
         train=TrainConfig(batch_size=64, num_sampled=32, n_epoch=1,
