@@ -14,7 +14,9 @@ they are already there).
 
 `train_state_from_arec` carries a whole arec `TrainState` across (params,
 optimizer state, lr scale, step), so a run can continue mid-training on
-either side from the same state.
+either side from the same state; `sparse_train_state_from_arec` does the
+same for the sparse touched-rows step's state (packed tables, the other
+parameters' optimizer state under "rest").
 """
 
 from __future__ import annotations
@@ -47,29 +49,48 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy().copy()
 
 
+def _opt_state_from_optax(opt, device):
+    """optax's `inject_hyperparams` state → the port's optimizer state:
+    `count`, `hyperparams["learning_rate"]` and `inner_state`, whose first
+    entry is `ScaleByRssState(sum_of_squares)` (adagrad),
+    `ScaleByAdamState(count, mu, nu)` (adam) or empty (sgd). Read by field
+    name: optax itself is not imported here."""
+    inner = opt.inner_state[0]
+    out = {"count": to_torch(opt.count, device),
+           "learning_rate": to_torch(opt.hyperparams["learning_rate"],
+                                     device)}
+    if hasattr(inner, "sum_of_squares"):
+        out["sum_of_squares"] = to_torch(inner.sum_of_squares, device)
+    elif hasattr(inner, "mu"):
+        out.update(mu=to_torch(inner.mu, device),
+                   nu=to_torch(inner.nu, device),
+                   adam_count=to_torch(inner.count, device))
+    return out
+
+
 def train_state_from_arec(state, device="cpu"):
     """arec's TrainState, as numpy (`jax.tree.map(np.asarray, state)`) →
-    the port's `arec_torch.train.step.TrainState` on `device`.
-
-    arec's opt_state is optax's `inject_hyperparams` state: `count`,
-    `hyperparams["learning_rate"]` and `inner_state`, whose first entry is
-    `ScaleByRssState(sum_of_squares)` (adagrad), `ScaleByAdamState(count,
-    mu, nu)` (adam) or empty (sgd). Read by field name: optax itself is not
-    imported here."""
+    the port's `arec_torch.train.step.TrainState` on `device`; opt_state is
+    optax's `inject_hyperparams` state (see _opt_state_from_optax)."""
     from arec_torch.train.step import TrainState
 
-    opt = state.opt_state
-    inner = opt.inner_state[0]
-    opt_state = {"count": to_torch(opt.count, device),
-                 "learning_rate": to_torch(
-                     opt.hyperparams["learning_rate"], device)}
-    if hasattr(inner, "sum_of_squares"):
-        opt_state["sum_of_squares"] = to_torch(inner.sum_of_squares, device)
-    elif hasattr(inner, "mu"):
-        opt_state.update(mu=to_torch(inner.mu, device),
-                         nu=to_torch(inner.nu, device),
-                         adam_count=to_torch(inner.count, device))
     return TrainState(params=to_torch(state.params, device),
-                      opt_state=opt_state,
+                      opt_state=_opt_state_from_optax(state.opt_state,
+                                                      device),
+                      lr_scale=to_torch(state.lr_scale, device),
+                      step=to_torch(state.step, device))
+
+
+def sparse_train_state_from_arec(state, device="cpu"):
+    """arec's sparse-step TrainState (`arec.train.sparse.init_sparse_state`),
+    as numpy → the port's, for `arec_torch.train.sparse`: the params keep
+    their packed [V, 2D] Adagrad tables (param ++ accumulator) and the
+    (1, 1) placeholders stay in the "rest" optimizer state, which is
+    optax's `inject_hyperparams` state under `opt_state["rest"]`."""
+    from arec_torch.train.step import TrainState
+
+    return TrainState(params=to_torch(state.params, device),
+                      opt_state={"rest": _opt_state_from_optax(
+                          state.opt_state["rest"], device)},
                       lr_scale=to_torch(state.lr_scale, device),
                       step=to_torch(state.step, device))

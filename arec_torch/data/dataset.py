@@ -1,7 +1,7 @@
 """Prepared-dataset container and batch iterators: the port's copy of
-`arec/data/dataset.py` (`PreparedDataset`, `build_prepared`, `seq_batches`,
-`eval_batches`). The iterators yield the same numpy arrays as arec's for
-the same (seed, epoch, host). `mf_batches` comes with the MF slice.
+`arec/data/dataset.py` (`PreparedDataset`, `build_prepared`, `mf_batches`,
+`seq_batches`, `eval_batches`). The iterators yield the same numpy arrays
+as arec's for the same (seed, epoch, host).
 
 Split protocol (SURVEY.md §3.4): interactions are time-sorted per user; the
 LAST interaction of each user (by time, ties by original order) is held out
@@ -180,6 +180,23 @@ def _padded_hist(train_users, train_items, num_users: int, max_hist: int):
 def _epoch_perm(n: int, seed: int, epoch: int) -> np.ndarray:
     return np.random.default_rng(
         np.random.SeedSequence([seed, epoch])).permutation(n)
+
+
+def mf_batches(ds: PreparedDataset, batch_size: int, seed: int, epoch: int,
+               host_id: int = 0, num_hosts: int = 1,
+               drop_remainder: bool = True
+               ) -> Iterator[dict[str, np.ndarray]]:
+    """MF training batches: (user, positive item) pairs in a deterministic
+    per-(seed, epoch) order of the train interactions; a last partial batch
+    (drop_remainder=False) is filled from the start of the order. The
+    negatives are drawn by the loss, not here."""
+    perm = _epoch_perm(len(ds.train_users), seed, epoch)[host_id::num_hosts]
+    n = (len(perm) // batch_size) * batch_size if drop_remainder else len(perm)
+    for s in range(0, n, batch_size):
+        idx = perm[s : s + batch_size]
+        if len(idx) < batch_size:
+            idx = np.concatenate([idx, perm[: batch_size - len(idx)]])
+        yield {"user": ds.train_users[idx], "pos_item": ds.train_items[idx]}
 
 
 def seq_batches(ds: PreparedDataset, batch_size: int, max_seq_len: int,

@@ -1,6 +1,13 @@
-"""Softmax-family losses of the sequence path (port of the seq half of
-`arec/losses/losses.py`): the sampled softmax CE and its oracle, the full
-softmax CE. The MF pairwise and batch losses come with the MF slice.
+"""The loss family (port of `arec/losses/losses.py`): the sampled softmax
+CE and its oracle, the full softmax CE; the MF pairwise-ranking losses
+(WARP, BPR) over sampled negatives; and the batch-ranking losses (`mw`,
+`bbpr`) that reuse the in-batch positives as shared negatives, with the
+optional Horvitz–Thompson correction (`_ht_weights`).
+
+Every sampled loss takes pre-drawn `sampled=(ids, p)`, so the sparse train
+step's touched rows and the loss's candidates are one draw. arec's
+`gather_cands` (the sparse-mesh step's all_gather of in-batch candidates)
+waits for the multi-GPU port (ROADMAP A7) and raises.
 
 Candidate-side encoding is one `embed(ids) -> (v [n, D], bias [n])`
 callable, so the per-candidate bias arrives in the same row gather as the
@@ -11,6 +18,7 @@ lane D) for the fused kernel's aug mode.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from arec_torch.losses.sampling import draw, log_uniform_prob, pop_prob
 from arec_torch.tables.engine import mm_f32
@@ -100,3 +108,121 @@ def full_softmax_loss(query, true_ids, all_items, all_bias, weights=None,
     ce = torch.logsumexp(logits, dim=1) - logits.gather(
         1, true_ids.long()[:, None])[:, 0]
     return _mean(ce, weights)
+
+
+# --------------------------------------------------------------------------
+# Pairwise-ranking family (sampled negatives)
+# --------------------------------------------------------------------------
+
+def warp_loss(query, true_ids, embed, gen, num_sampled: int, vocab: int,
+              dist: str = "uniform", margin: float = 1.0,
+              compute_dtype=torch.bfloat16, pop=None, sampled=None):
+    """WARP with parallel sampled rank estimation: margin violations among
+    S draws estimate the positive's rank, loss = Φ(rank)·mean hinge with
+    Φ(r) = log(1 + r). Under the uniform proposal the rank is the classic
+    (V−1)·m/S; under any other, each draw j is weighted by the vocabulary
+    mass it stands for, 1/(S·P(j)) (arec's full Horvitz–Thompson form)."""
+    sampled_ids, p = sampled if sampled is not None else draw(
+        gen, num_sampled, vocab, dist, pop)
+    v_true, b_true = embed(true_ids)
+    v_samp, b_samp = embed(sampled_ids)
+    pos = _rowdot(query, v_true) + b_true                          # [N]
+    neg = mm_f32(query, v_samp.T, compute_dtype) + b_samp[None, :]
+    hit = sampled_ids[None, :] == true_ids[:, None]
+    hinge = torch.clamp(margin + neg - pos[:, None], min=0.0)
+    hinge = torch.where(hit, 0.0, hinge)
+    violations = (hinge > 0).float()
+    m = violations.sum(dim=1)                                      # [N]
+    if dist == "uniform":
+        rank = (vocab - 1) * m / num_sampled
+        mean_hinge = hinge.sum(dim=1) / torch.clamp(m, min=1.0)
+    else:
+        inv = (1.0 / (num_sampled * p))[None, :]                   # [1, S]
+        wm = (violations * inv).sum(dim=1)                         # ~rank
+        rank = torch.clamp(wm, max=vocab - 1.0)
+        mean_hinge = (hinge * inv).sum(dim=1) / torch.clamp(wm, min=1e-6)
+    return (torch.log1p(rank) * mean_hinge).mean()
+
+
+def bpr_loss(query, true_ids, embed, gen, num_sampled: int, vocab: int,
+             dist: str = "uniform", compute_dtype=torch.bfloat16, pop=None,
+             sampled=None):
+    """BPR (Rendle 2009): −log σ(pos − neg) over the sampled negatives
+    that are not the row's positive."""
+    sampled_ids, _ = sampled if sampled is not None else draw(
+        gen, num_sampled, vocab, dist, pop)
+    v_true, b_true = embed(true_ids)
+    v_samp, b_samp = embed(sampled_ids)
+    pos = _rowdot(query, v_true) + b_true
+    neg = mm_f32(query, v_samp.T, compute_dtype) + b_samp[None, :]
+    hit = sampled_ids[None, :] == true_ids[:, None]
+    ll = torch.where(hit, 0.0, F.logsigmoid(pos[:, None] - neg))
+    denom = torch.clamp((~hit).sum(dim=1).float(), min=1.0)
+    return -(ll.sum(dim=1) / denom).mean()
+
+
+# --------------------------------------------------------------------------
+# Batch-ranking family (AAAI'18: in-batch positives as shared negatives).
+# pop_probs (optional [V], the empirical item distribution) turns on the
+# Horvitz–Thompson correction for that popularity-skewed proposal: draw j
+# of row i is weighted by (1 − q_t)/(n_eff·q_j) (_ht_weights); None keeps
+# the paper's estimator.
+# --------------------------------------------------------------------------
+
+def _ht_weights(cand_ids, same, true_ids, pop_probs):
+    """[b, B] HT weights: the vocabulary mass each usable draw stands for,
+    conditioned on cand != true (the `same` mask)."""
+    q = torch.clamp(pop_probs[cand_ids.long()], min=1e-12)          # [B]
+    q_t = pop_probs[true_ids.long()][:, None]                       # [b, 1]
+    n_eff = torch.clamp((~same).sum(dim=1, keepdim=True), min=1)    # [b, 1]
+    return torch.where(same, 0.0, (1.0 - q_t) / (n_eff * q[None, :]))
+
+
+def _batch_scores(query, true_ids, embed, compute_dtype, gather_cands):
+    """(scores [b, B], own-positive scores [b], duplicate-positive mask
+    [b, B], candidate ids [B])."""
+    if gather_cands is not None:
+        raise NotImplementedError(
+            "gather_cands (in-batch candidates across a device mesh) waits "
+            "for the multi-GPU port (ROADMAP A7)")
+    v, b_bias = embed(true_ids)                                    # [b, D]
+    scores = mm_f32(query, v.T, compute_dtype) + b_bias[None, :]
+    pos = torch.diagonal(scores)
+    same = true_ids[None, :] == true_ids[:, None]                  # dup-pos
+    return scores, pos, same, true_ids
+
+
+def batch_mw_loss(query, true_ids, embed, vocab: int, margin: float = 1.0,
+                  compute_dtype=torch.bfloat16, gather_cands=None,
+                  pop_probs=None):
+    """`mw`: margin + rank-weighted hinge over the in-batch score matrix;
+    positives on the diagonal, every other column a negative."""
+    scores, pos, same, cand_ids = _batch_scores(
+        query, true_ids, embed, compute_dtype, gather_cands)
+    hinge = torch.clamp(margin + scores - pos[:, None], min=0.0)
+    hinge = torch.where(same, 0.0, hinge)
+    if pop_probs is None:
+        m = (hinge > 0).sum(dim=1).float()
+        rank = (vocab - 1) * m / max(cand_ids.shape[0] - 1, 1)
+        mean_hinge = hinge.sum(dim=1) / torch.clamp(m, min=1.0)
+    else:
+        w = _ht_weights(cand_ids, same, true_ids, pop_probs)
+        wm = (w * (hinge > 0)).sum(dim=1)                          # ~rank
+        rank = torch.clamp(wm, max=vocab - 1.0)
+        mean_hinge = (w * hinge).sum(dim=1) / torch.clamp(wm, min=1e-6)
+    return (torch.log1p(rank) * mean_hinge).mean()
+
+
+def batch_bpr_loss(query, true_ids, embed, compute_dtype=torch.bfloat16,
+                   gather_cands=None, pop_probs=None):
+    """`bbpr`: BPR over the in-batch score matrix (self-normalised HT
+    weights with pop_probs)."""
+    scores, pos, same, cand_ids = _batch_scores(
+        query, true_ids, embed, compute_dtype, gather_cands)
+    ll = torch.where(same, 0.0, F.logsigmoid(pos[:, None] - scores))
+    if pop_probs is None:
+        denom = torch.clamp((~same).sum(dim=1).float(), min=1.0)
+        return -(ll.sum(dim=1) / denom).mean()
+    w = _ht_weights(cand_ids, same, true_ids, pop_probs)
+    return -((w * ll).sum(dim=1)
+             / torch.clamp(w.sum(dim=1), min=1e-12)).mean()

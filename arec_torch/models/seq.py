@@ -253,18 +253,22 @@ def rnn_scan(layers: list[dict], cell: str, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def seq_inputs(params, spec: SeqSpec, item_dev, user_dev, batch,
-               dropout_gen=None, time_major: bool = False):
+               dropout_gen=None, time_major: bool = False,
+               lookup_fn=dense_lookup, lookup_fns: dict | None = None):
     """Fused per-step input embeddings [B, L, D] ([L, B, D] with
     time_major: the int ids are transposed before the gather, so no
     embedding-sized transpose exists). dropout_gen: fusion dropout of the
-    item encoder at spec.keep_prob."""
+    item encoder at spec.keep_prob. lookup_fn / lookup_fns: the row gather,
+    per role ("item", "user") in lookup_fns (the sparse step's subset
+    lookups)."""
+    lk = lookup_fns or {}
     ids = batch["inputs"].T if time_major else batch["inputs"]
     x = encode(params["item_in"], spec.item_in, item_dev, ids,
-               act_dtype=spec.act_dt, dropout_gen=dropout_gen,
-               keep_prob=spec.keep_prob)
+               lk.get("item", lookup_fn), act_dtype=spec.act_dt,
+               dropout_gen=dropout_gen, keep_prob=spec.keep_prob)
     if spec.user is not None:
         u = encode(params["user"], spec.user, user_dev, batch["user"],
-                   act_dtype=spec.act_dt)
+                   lk.get("user", lookup_fn), act_dtype=spec.act_dt)
         x = x + (u[None, :, :] if time_major else u[:, None, :])
     return x
 
@@ -277,7 +281,8 @@ def init_states(spec: SeqSpec, batch_size: int, device) -> list:
 
 def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
                dropout_gen=None, states: list | None = None,
-               return_states: bool = False, time_major: bool = False):
+               return_states: bool = False, time_major: bool = False,
+               lookup_fn=dense_lookup, lookup_fns: dict | None = None):
     """Top-layer hidden states [B, L, H] ([L, B, H] with time_major).
     `states`/`return_states` expose the per-layer (h, c) carries of the
     segmented scan. `dropout_gen` (a training key, see arec_torch.rng)
@@ -289,7 +294,8 @@ def seq_hidden(params, spec: SeqSpec, item_dev, user_dev, batch,
     if dropout_gen is not None and spec.keep_prob < 1.0:
         g_in, g_rnn = split(dropout_gen, dev)
     x = seq_inputs(params, spec, item_dev, user_dev, batch, g_in,
-                   time_major=time_major)
+                   time_major=time_major, lookup_fn=lookup_fn,
+                   lookup_fns=lookup_fns)
     mask = batch["mask"].T if time_major else batch["mask"]
     if spec.use_pallas_scan:
         if spec.cell == "lstm":
@@ -309,11 +315,14 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
              gen: torch.Generator, sampled: tuple | None = None,
              states: list | None = None, return_states: bool = False,
              use_kernel: bool | None = None, time_major: bool = False,
-             mesh=None, pop=None):
+             mesh=None, pop=None, lookup_fn=dense_lookup,
+             lookup_fns: dict | None = None):
     """Sampled-softmax CE over all valid positions. `gen` is the step's key
     (arec_torch.rng): it splits into the dropout and the negatives streams,
     as arec's rng does; `sampled=(ids, p)` hands pre-drawn negatives in.
     With `states`/`return_states` the loss runs one TBPTT segment.
+    lookup_fn / lookup_fns: the row gather, per role ("item", "user",
+    "out" for the untied output table) in lookup_fns.
 
     A packed history of train_segments·L steps is scanned in segments of L
     with (h, c) carried and gradients flowing through the carries; each
@@ -322,13 +331,15 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     seed is drawn before the checkpointed call and its generators are
     built inside it, so the recompute redraws the same masks."""
     dev = batch["inputs"].device
+    lk = lookup_fns or {}
     g_drop, g_neg = split(gen, dev)
     L, n = spec.max_seq_len, spec.train_segments
     if n > 1 and batch["inputs"].shape[1] == n * L:
         def seg_fn(st, seg, seed):
             return seq_hidden(params, spec, item_dev, user_dev, seg,
                               dropout_gen=generator(seed, dev), states=st,
-                              return_states=True, time_major=time_major)
+                              return_states=True, time_major=time_major,
+                              lookup_fn=lookup_fn, lookup_fns=lookup_fns)
 
         st = states if states is not None else init_states(
             spec, batch["inputs"].shape[0], dev)
@@ -344,7 +355,8 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     else:
         h = seq_hidden(params, spec, item_dev, user_dev, batch,
                        dropout_gen=g_drop, states=states,
-                       return_states=return_states, time_major=time_major)
+                       return_states=return_states, time_major=time_major,
+                       lookup_fn=lookup_fn, lookup_fns=lookup_fns)
         if return_states:
             h, new_states = h
     d = h.shape[-1]
@@ -361,12 +373,13 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     if spec.tie_output:
         def embed(ids):
             return encode_with_bias(params["item_in"], spec.item_in,
-                                    item_dev, ids, act_dtype=spec.act_dt)
+                                    item_dev, ids, lk.get("item", lookup_fn),
+                                    act_dtype=spec.act_dt)
     else:
         # raw [n, D+1] rows (bias in lane D): the fused CE's aug mode takes
         # them as they are for the true side
         def embed_raw(ids):
-            return dense_lookup(params["item_out"], ids)
+            return lk.get("out", lookup_fn)(params["item_out"], ids)
 
         def embed(ids):
             rows = embed_raw(ids)

@@ -1,17 +1,21 @@
-"""Standing serving layer (port of `arec/serve.py`, sequence family): hold
-the model's weights and the item latent matrix on the device and answer
-batched top-K requests from raw item histories.
+"""Standing serving layer (port of `arec/serve.py`): hold the model's
+weights and the item latent matrix on the device and answer batched top-K
+requests — raw item histories (sequence family, `from_histories`) or user
+ids (MF family, `for_users`).
 
 The path is arec's: `Recommender.__init__` → item latents (pre-cast to
-the compute dtype) → per batch `_query_fn` → `seq_final_state_full` (the
-carried-state segmented scan, through the CUDA LSTM or GRU kernel with
-`use_pallas_scan`) → seen-masked exact top-k. Requests are padded to a
-fixed batch of `serve_batch`.
+the compute dtype) → per batch `_query_fn` → the sequence family's
+`seq_final_state_full` (the carried-state segmented scan, through the CUDA
+LSTM or GRU kernel with `use_pallas_scan`) or MF's `mf_user_latents` →
+seen-masked exact top-k. Requests are padded to a fixed batch of
+`serve_batch`.
 
 Weights enter as an arec-layout param tree (numpy or torch; see
-`arec_torch.bridge`) — what a checkpoint restore would hand over. Not
-ported yet: checkpoint restore (`refresh`, `main`), MF serving
-(`for_users`) and the approximate top-k mode.
+`arec_torch.bridge`) — what a checkpoint restore would hand over. An MF
+tree may be the sparse step's packed one (tables [V, 2D]); it is read
+through `unpack_params`, as arec's `Trainer._eval_params` does. Not ported
+yet: checkpoint restore (`refresh`, `main`) and the approximate top-k
+mode.
 """
 
 from __future__ import annotations
@@ -24,26 +28,47 @@ import torch
 from arec_torch import bridge, resolve_device
 from arec_torch.config import Config
 from arec_torch.data.io import load_or_prepare
+from arec_torch.models import mf as mf_mod
 from arec_torch.models import seq as seq_mod
 from arec_torch.tables.engine import attrs_to_device
 from arec_torch.train.evalu import topk_with_mask
+from arec_torch.train.sparse import get_path, table_paths, unpack_params
 
 
 def _item_latents(cfg: Config, spec, params, item_dev):
     """All-item latent matrix + bias; serve_latents_dtype="compute" pre-casts
     the matrix to the compute dtype once (scores are unchanged: top-k casts
     its operands anyway)."""
-    v, b = seq_mod.seq_item_latents(params, spec, item_dev)
+    if isinstance(spec, mf_mod.MFSpec):
+        v, b = mf_mod.mf_item_latents(params, spec, item_dev)
+    else:
+        v, b = seq_mod.seq_item_latents(params, spec, item_dev)
     if cfg.train.serve_latents_dtype == "compute":
         v = v.to(spec.dtype)
     return v, b
 
 
 def _query_fn(spec, params, item_dev, user_dev, batch):
-    """Serving query encode: the final recurrent state after each
-    history."""
+    """Serving query encode: MF's user latents, or the final recurrent
+    state after each history."""
+    if isinstance(spec, mf_mod.MFSpec):
+        return mf_mod.mf_user_latents(params, spec, user_dev, batch["user"])
     return seq_mod.seq_final_state_full(params, spec, item_dev, user_dev,
                                         batch)
+
+
+def _mf_params(spec, params):
+    """A plain MF param tree: the sparse step's packed tables ([V, 2D])
+    are read through unpack_params; any other width raises."""
+    paths = table_paths(False, spec)
+    widths = [get_path(params, p).shape[1] for p in paths]
+    want = [spec.user.width, spec.item.width]
+    if widths == [2 * w for w in want]:
+        return unpack_params(params, paths)
+    if widths != want:
+        raise ValueError(f"MF tables of width {widths}: neither plain "
+                         f"{want} nor packed {[2 * w for w in want]}")
+    return params
 
 
 def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int):
@@ -84,7 +109,8 @@ def _auto_width(seen, fallback: int = 1) -> int:
 
 
 class Recommender:
-    """Serve a sequence model from weights handed over as a param tree.
+    """Serve a sequence or MF model from weights handed over as a param
+    tree.
 
     Args:
       cfg: the model's Config (the same JSON arec trains from).
@@ -101,9 +127,6 @@ class Recommender:
                  serve_batch: int = 256, seen_width: int | None = None,
                  device=None):
         self.device = resolve_device(device)
-        if cfg.model.model != "lstm":
-            raise NotImplementedError(
-                "MF serving (for_users) is not ported yet: later slice")
         if self.device.type == "cuda" and (
                 torch.backends.cuda.matmul.allow_tf32):
             raise RuntimeError(
@@ -114,16 +137,20 @@ class Recommender:
         self.serve_batch = serve_batch
         self.seen_width = None if seen_width is None else max(seen_width, 1)
         self._restored_step = None       # weights were handed in, not restored
-        ds = load_or_prepare(cfg.data)
-        spec = self.spec = seq_mod.SeqSpec.from_config(
-            cfg, ds.user_schema, ds.item_schema)
+        ds = self._ds = load_or_prepare(cfg.data)
+        self.is_seq = cfg.model.model != "mf"
+        family = seq_mod.SeqSpec if self.is_seq else mf_mod.MFSpec
+        spec = self.spec = family.from_config(cfg, ds.user_schema,
+                                              ds.item_schema)
+        item_enc = spec.item_in if self.is_seq else spec.item
         self._item_dev = attrs_to_device(
-            ds.item_attrs.restrict(spec.item_in.schema), spec.item_in,
-            self.device)
+            ds.item_attrs.restrict(item_enc.schema), item_enc, self.device)
         self._user_dev = (attrs_to_device(
             ds.user_attrs.restrict(spec.user.schema), spec.user, self.device)
             if spec.user is not None else None)
         self._params = bridge.to_torch(params, self.device)
+        if not self.is_seq:
+            self._params = _mf_params(spec, self._params)
         with torch.inference_mode():
             self._vb = _item_latents(cfg, spec, self._params, self._item_dev)
         self._step = _serve_step(cfg, spec, self._item_dev, self._user_dev,
@@ -135,9 +162,25 @@ class Recommender:
             "later slice")
 
     def for_users(self, user_ids, seen=None) -> np.ndarray:
-        raise NotImplementedError(
-            "for_users serves the MF family, which is not ported yet: "
-            "later slice")
+        """Top-k item ids for known user ids (MF family). `seen`: optional
+        per-request iterable of item ids to exclude."""
+        if self.is_seq:
+            raise ValueError("for_users serves the MF family; use "
+                             "from_histories for sequence models")
+        user_ids = np.asarray(user_ids, np.int32)
+        sb = self.serve_batch
+        pad_user = self._ds.num_users            # encodes to zero
+        width = self.seen_width or _auto_width(seen)
+
+        def batches():
+            for s in range(0, len(user_ids), sb):
+                chunk = user_ids[s:s + sb]
+                users = np.full(sb, pad_user, np.int32)
+                users[:len(chunk)] = chunk
+                sl = None if seen is None else seen[s:s + sb]
+                yield {"user": users,
+                       "seen": _pad_seen(sl, sb, width)}, len(chunk)
+        return self._run(batches())
 
     # ------------------------------------------------------------------
     def _run(self, batches) -> np.ndarray:
@@ -197,6 +240,8 @@ class Recommender:
         length (the carried-state segmented scan runs one segment per
         max_seq_len items). By default a request's own history is also its
         seen-exclusion list."""
+        if not self.is_seq:
+            raise ValueError("from_histories serves the sequence family")
         return self._run(self._history_batches(histories, seen_from_history,
                                                seen, user_ids))
 
@@ -204,6 +249,7 @@ class Recommender:
 # ---------------------------------------------------------------------------
 # Line-oriented request loop (arec's `python -m arec.serve` protocol):
 #
+#   MF family:        <user_id>[\t<seen_id,seen_id,...>]
 #   sequence family:  <hist_id,hist_id,...>   (history = exclusion list)
 #   commands:         !step, !quit; !refresh answers !err until the
 #                     checkpoint slice is ported
@@ -227,11 +273,19 @@ def _serve_loop(rec: Recommender, inp, out) -> int:
                 changed = rec.refresh()
                 print(f"!ok {'refreshed' if changed else 'current'} "
                       f"step {rec._restored_step}", file=out, flush=True)
-            else:
+            elif rec.is_seq:
                 first = line.split("\t")[0]
                 hist = [int(x) for x in first.split(",") if x]
                 ids = rec.from_histories([hist])
                 print(f"{first}\t{','.join(map(str, ids[0].tolist()))}",
+                      file=out, flush=True)
+            else:
+                parts = line.split("\t")
+                uid = int(parts[0])
+                seen = ([[int(x) for x in parts[1].split(",") if x]]
+                        if len(parts) > 1 and parts[1] else None)
+                ids = rec.for_users([uid], seen=seen)
+                print(f"{uid}\t{','.join(map(str, ids[0].tolist()))}",
                       file=out, flush=True)
         except Exception as e:  # keep serving after a bad request
             print(f"!err {type(e).__name__}: {e}", file=out, flush=True)

@@ -13,9 +13,14 @@ device-side assert that would kill a standing server: `dense_lookup`
 clamps (jnp.take mode="clip"), and the attribute-map gathers wrap negative
 ids once and then clamp (jnp `x[idx]`).
 
-Gathers give dense table gradients (arec's dense train step). The
-sparse-update subset helpers and `make_compact_lookup` come with the
-sparse touched-rows step.
+The row gather is pluggable (`lookup_fn`), as in arec: `dense_lookup`
+gathers from a whole table and gives it a dense gradient (arec's dense
+train step); the sparse touched-rows step (`arec_torch.train.sparse`)
+passes `make_subset_lookup`, which reads a subset table [dense prefix ++
+the step's unique gather rows] through a dense id→position map, so the
+gradient is O(touched rows). The subset helpers keep arec's static shapes:
+no step of them reads a data-dependent size back to the host.
+`make_compact_lookup` is not ported (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -233,30 +238,32 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def encode(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-           act_dtype=None, dropout_gen=None,
+           lookup_fn=dense_lookup, act_dtype=None, dropout_gen=None,
            keep_prob: float = 1.0) -> torch.Tensor:
     """ids int [...] (values in [0, num_entities]; num_entities = pad) →
     entity latents float32 [..., dim]. Pad ids encode to exactly zero.
+    lookup_fn(table, row_ids): the row gather (see the module docstring).
     act_dtype: arec's train-path activation dtype (None = float32).
     dropout_gen/keep_prob: training dropout on the fused latents."""
-    latent, _ = _encode_impl(params, spec, attr_dev, ids, act_dtype,
-                             dropout_gen, keep_prob)
+    latent, _ = _encode_impl(params, spec, attr_dev, ids, lookup_fn,
+                             act_dtype, dropout_gen, keep_prob)
     return latent
 
 
 def encode_with_bias(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-                     act_dtype=None, dropout_gen=None,
-                     keep_prob: float = 1.0):
+                     lookup_fn=dense_lookup, act_dtype=None,
+                     dropout_gen=None, keep_prob: float = 1.0):
     """(latents [..., dim], bias [...]) — candidate-side encode; the bias is
     column `dim` of the entity-ID field's row."""
     if not spec.with_bias:
         raise ValueError("encode_with_bias needs EncoderSpec.with_bias")
-    return _encode_impl(params, spec, attr_dev, ids, act_dtype, dropout_gen,
-                        keep_prob)
+    return _encode_impl(params, spec, attr_dev, ids, lookup_fn, act_dtype,
+                        dropout_gen, keep_prob)
 
 
 def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
-                 act_dtype=None, dropout_gen=None, keep_prob: float = 1.0):
+                 lookup_fn=dense_lookup, act_dtype=None, dropout_gen=None,
+                 keep_prob: float = 1.0):
     batch_shape = ids.shape
     flat = ids.reshape(-1).long()
     table = params["tables"][FUSED]
@@ -281,7 +288,7 @@ def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
                 cols.append(gathered[:, gi])
                 gi += 1
         cat_ids = torch.stack(cols, dim=1)                   # [N, n_cat]
-        cat_rows = acast(dense_lookup(table, cat_ids.reshape(-1)))
+        cat_rows = acast(lookup_fn(table, cat_ids.reshape(-1)))
         cat_rows = cat_rows.reshape(*cat_ids.shape, d)       # [N, n_cat, D]
 
     # large-vocab mulhot: one gather + per-field mask-mean
@@ -289,7 +296,7 @@ def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
     if spec.gather_mulhot_fields:
         mul_ids = _take_rows(attr_dev["mul"], flat).long()   # [N, total_deg]
         safe = torch.where(mul_ids >= 0, mul_ids, 0)
-        rows = acast(dense_lookup(table, safe.reshape(-1)))
+        rows = acast(lookup_fn(table, safe.reshape(-1)))
         rows = rows.reshape(*mul_ids.shape, d)               # [N, deg, D]
         mask = (mul_ids >= 0).to(rows.dtype)[..., None]
         rows = rows * mask
@@ -339,16 +346,142 @@ def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
     return latent, bias
 
 
-def encode_all_items_with_bias(params: Params, spec: EncoderSpec,
-                               attr_dev: dict, block: int = 8192):
-    """(V [num_items, dim], bias [num_items]) for full-softmax eval and
+def encode_all_items(params: Params, spec: EncoderSpec, attr_dev: dict,
+                     block: int = 8192, lookup_fn=dense_lookup):
+    """All-item latent matrix [num_items, dim] for full-softmax eval and
     retrieval, encoded in blocks of `block` ids to bound peak memory."""
+    n = spec.schema.num_entities
+    device = params["tables"][FUSED].device
+    return torch.cat([
+        encode(params, spec, attr_dev,
+               torch.arange(s, min(s + block, n), device=device), lookup_fn)
+        for s in range(0, n, block)])
+
+
+def encode_all_items_with_bias(params: Params, spec: EncoderSpec,
+                               attr_dev: dict, block: int = 8192,
+                               lookup_fn=dense_lookup):
+    """(V [num_items, dim], bias [num_items]) — with_bias counterpart of
+    `encode_all_items`."""
     n = spec.schema.num_entities
     device = params["tables"][FUSED].device
     vs, bs = [], []
     for s in range(0, n, block):
         ids = torch.arange(s, min(s + block, n), device=device)
-        v, b = encode_with_bias(params, spec, attr_dev, ids)
+        v, b = encode_with_bias(params, spec, attr_dev, ids, lookup_fn)
         vs.append(v)
         bs.append(b)
     return torch.cat(vs), torch.cat(bs)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-update support (arec_torch/train/sparse.py): the loss reads a SUBSET
+# table [dense prefix ++ the step's unique gather rows], so gradients and
+# optimizer traffic are O(touched rows), not O(vocab). The fused layout puts
+# the dense fields in a prefix, so encode's dense path (static slices) works
+# on the subset unchanged.
+# ---------------------------------------------------------------------------
+
+def gather_row_ids(spec: EncoderSpec, attr_dev: dict,
+                   ids: torch.Tensor) -> torch.Tensor:
+    """Every fused-table row id (int32) the GATHER path touches for entity
+    `ids`. Invalid mulhot slots map to the out-of-range sentinel
+    `total_rows`, not to the row 0 that encode's masked gather reads: their
+    gradient is zero, so they are not touched rows (row 0 may be a prefix
+    row, whose update a zero-gradient slot would overwrite)."""
+    flat = ids.reshape(-1).long()
+    parts = []
+    if spec.gather_cat_fields:
+        offsets = spec.field_offsets()
+        for f in spec.identity_cat_fields:
+            off = offsets[f.name]
+            parts.append(torch.where(flat < f.vocab_size, flat + off,
+                                     off + f.pad_index))
+        if spec.gathered_cat_fields:
+            parts.append(_take_rows(attr_dev["cat"], flat).reshape(-1))
+    if spec.gather_mulhot_fields:
+        m = _take_rows(attr_dev["mul"], flat).reshape(-1)
+        parts.append(torch.where(m >= 0, m, spec.total_rows))
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=ids.device)
+    return torch.cat([p.to(torch.int32) for p in parts])
+
+
+def unique_rows(ids: torch.Tensor, sentinel: int,
+                cap: int | None = None) -> torch.Tensor:
+    """Sorted-unique with a static shape: trailing slots hold `sentinel`
+    (pass total_rows: out of range, so scatters drop them and subset
+    gathers zero-fill them). One sort and a cumsum compaction, whose output
+    size does not depend on the data (torch.unique's does, and reading it
+    would sync with the host); every duplicate writes the same value to the
+    same slot. cap: a provable bound on the unique count
+    (`gather_unique_bound`); the output is cut to [cap]."""
+    if ids.shape[0] == 0:
+        return ids
+    s = torch.sort(ids).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    slot = torch.cumsum(first, 0) - 1              # unique-group index
+    out = torch.full_like(s, sentinel)
+    out.scatter_(0, slot, s)
+    if cap is not None and cap < out.shape[0]:
+        # slot < unique count <= cap: no live value lands beyond out[:cap]
+        out = out[:cap]
+    return out
+
+
+def gather_unique_bound(spec: EncoderSpec, n_ids: int) -> int:
+    """Static upper bound on the number of UNIQUE fused-table rows the
+    gather path can touch for `n_ids` entity ids: per field, at most
+    min(#ids drawn for it, its table rows)."""
+    b = 0
+    for f in spec.identity_cat_fields:
+        b += min(n_ids, f.table_rows)
+    for f in spec.gathered_cat_fields:
+        b += min(n_ids, f.table_rows)
+    for f in spec.gather_mulhot_fields:
+        b += min(n_ids * f.max_degree, f.table_rows)
+    return b
+
+
+def build_subset(table: torch.Tensor, uids: torch.Tensor,
+                 prefix_rows: int) -> torch.Tensor:
+    """[table[:prefix_rows] ++ table[uids]], a new tensor. Sentinel uids
+    (>= rows) give zero rows, as jnp's mode="fill" gather: their index is
+    clamped for the gather and the row is then replaced by zeros, so no
+    sentinel slot carries another row's values."""
+    if uids.shape[0] == 0:
+        return table[:prefix_rows].clone()
+    n = table.shape[0]
+    ok = (uids < n)[:, None]
+    tail = torch.where(ok, table[uids.long().clamp(max=n - 1)], 0.0)
+    if prefix_rows == 0:
+        return tail
+    return torch.cat([table[:prefix_rows], tail], dim=0)
+
+
+def subset_pos_map(uids: torch.Tensor, total_rows: int,
+                   prefix_rows: int) -> torch.Tensor:
+    """Dense id→subset-position map [total_rows] int32: a prefix row maps
+    to itself, uid k to prefix_rows + k, every other row to 0. Sentinel
+    uids are dropped before the index write (a CUDA index out of range
+    kills the context): they are sent to one extra slot past the end,
+    which the returned view leaves out."""
+    dev = uids.device
+    base = torch.arange(total_rows + 1, dtype=torch.int32, device=dev)
+    pos = torch.where(base < prefix_rows, base, 0)
+    slots = prefix_rows + torch.arange(uids.shape[0], dtype=torch.int32,
+                                       device=dev)
+    pos[uids.long().clamp(max=total_rows)] = slots
+    return pos[:total_rows]
+
+
+def make_subset_lookup(pos_map: torch.Tensor, prefix_rows: int):
+    """lookup_fn over the subset table through the dense position map. The
+    row gather is `embedding`, as in `dense_lookup`, so its backward sums
+    repeated rows without an index_put."""
+    def lookup(sub: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        pos = _take_rows(pos_map, ids.reshape(-1).long())
+        return torch.nn.functional.embedding(pos, sub).reshape(
+            *ids.shape, sub.shape[1])
+    return lookup

@@ -9,7 +9,9 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (the LSTM and GRU forwards at the serving
    shapes; their training launches and backwards and the fused
-   sampled-softmax CE forward and backward at c4's training shape), and
+   sampled-softmax CE forward and backward at c4's training shape; the CE
+   again at the MF training shape; the row scatter, bit for bit, into the
+   MF model's packed item and user tables and at its edge cases), and
    times kernel, plain version and a library call (a yardstick only).
 3. Serves the c4 sequence model (configs/c4_lstm_attr_xing.json: LSTM,
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
@@ -26,7 +28,17 @@
    serving top-k.
 5. Steps 3 and 4 again with the cell set to GRU (`model.cell=gru`, the
    same model otherwise), through the GRU scan kernels.
-6. Prints one `{"kernels": [...]}` JSON line and, last, the
+6. The MF model of configs/syn_xing_full.json at its own width (dim 128,
+   1.3M items, 1.5M users, packed sparse-Adagrad tables) on one card:
+   serves 256 users through `Recommender.for_users` and 3 request-loop
+   lines, checking the answers against an independent f32 top-k; then
+   trains it with the sparse touched-rows step (`mf_batches` →
+   `make_sparse_train_step`, whose table write-back is the row-scatter
+   kernel) for one warm-up and 20 counted steps, with a profile of one
+   step; checks one sparse step against one dense step from the same
+   state, and that step's write-back, kernel against plain version, bit
+   for bit; then Recall@30.
+7. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -90,6 +102,26 @@ LOSS_TOL = 1e-3
 SEG_GRAD_TOL = 1e-3
 TRAIN_STEPS = 20
 EVAL_BATCHES = 4
+
+XING = os.path.join(ROOT, "configs", "syn_xing_full.json")
+# syn_xing_full's MF model on one card (its mesh is the multi-GPU port's,
+# ROADMAP A7). The interaction count shapes no tensor (1M interactions
+# still give 93 batches of 8192), so it is cut to keep the host-side prep
+# short; the user count shapes the user table and stays.
+MF_SETS = {"mesh.data": 1, "mesh.model": 1, "data.data_dir": DATA_DIR}
+MF_CUTS = {"data.syn_interactions": (12_000_000, 1_000_000)}
+# the packed [V, 2D] tables' rows and widths, and the touched-row bound of
+# one sparse step (unique gather rows + the dense prefix) at batch 8192
+# and S = 2048, as syn_xing_full gives them
+MF_SHAPES = {"item": (1_304_126, 258, 14_337 + 28),
+             "user": (1_504_123, 256, 12_289 + 25)}
+# one sparse step against one dense step from the same state, f32 tables:
+# the forward values agree bit for bit (the same rows enter the same
+# products), so the parameters differ only by the embedding backward's
+# summation order and the two Adagrad forms (1/(√a + eps) against
+# rsqrt(a + eps)): tests/test_sparse.py's tolerance. Untouched rows are
+# compared bit for bit.
+SPARSE_DENSE = dict(rtol=2e-5, atol=1e-6)
 
 
 def log(*a):
@@ -375,51 +407,54 @@ def ce_inputs(N, S, D, aug, dev, seed):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-def ce_phase(dev):
-    """sampled_ce_fwd / sampled_ce_bwd against their plain versions at c4's
-    training shape (N = 128·50 rows, S = 1024, D = 128), aug and non-aug,
-    weighted, with forced accidental hits; then their times (aug, the mode
-    c4's untied output table takes)."""
+def ce_check(N, S, D, aug, dev, g_num):
+    """sampled_ce_fwd / sampled_ce_bwd against their plain versions at one
+    shape, both dtypes, weighted, with forced accidental hits; each repeats
+    bit for bit. Returns {dtype: (forward err, backward err)}."""
+    import torch
+    from arec_torch.kernels import sampled_softmax as tks
+
+    args = ce_inputs(N, S, D, aug, dev, seed=aug + N)
+    out = {}
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        got = tks.sampled_ce_fwd(*args, dt)
+        torch.cuda.synchronize()
+        want = tks.sampled_ce_fwd_plain(*args, dt)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **CE_VAL[name])
+        again = tks.sampled_ce_fwd(*args, dt)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+            "sampled_ce_fwd does not repeat bit for bit")
+        e_f = max_err(got[2:], want[2:])            # per-row ce, lse
+        num_rel = abs(float(got[0] / want[0]) - 1.0)
+        lse = want[3]
+        got = tks.sampled_ce_bwd(*args, lse, g_num, dt)
+        torch.cuda.synchronize()
+        want = tks.sampled_ce_bwd_plain(*args, lse, g_num, dt)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **CE_GRAD[name])
+        again = tks.sampled_ce_bwd(*args, lse, g_num, dt)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+            "sampled_ce_bwd does not repeat bit for bit")
+        e_b = max_err(got, want)
+        out[name] = (e_f, e_b)
+        log(f"kernel vs plain  N={N} S={S} D={D} aug={aug} {name}: "
+            f"sampled_ce_fwd (ce, lse) max abs err {e_f:.3e}, Σw·ce "
+            f"relative err {num_rel:.3e} (tolerance {CE_VAL[name]}); "
+            f"sampled_ce_bwd max abs err {e_b:.3e} (tolerance "
+            f"{CE_GRAD[name]}); both repeat bit for bit")
+    return out
+
+
+def ce_timing(N, S, D, aug, dev, g_num):
+    """Times of both CE kernels, their plain versions and the library
+    yardstick at one shape, both dtypes."""
     import torch
     import torch.nn.functional as F
     from arec_torch.kernels import sampled_softmax as tks
 
-    N, S, D = 6400, 1024, 128
-    g_num = torch.tensor(0.7, device=dev)   # cotangent of Σ w·ce
-    errs = {"fwd": {}, "bwd": {}}
-    for aug in (1, 0):
-        args = ce_inputs(N, S, D, aug, dev, seed=aug)
-        for name in DTYPES:
-            dt = getattr(torch, name)
-            got = tks.sampled_ce_fwd(*args, dt)
-            torch.cuda.synchronize()
-            want = tks.sampled_ce_fwd_plain(*args, dt)
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g, w, **CE_VAL[name])
-            again = tks.sampled_ce_fwd(*args, dt)
-            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
-                "sampled_ce_fwd does not repeat bit for bit")
-            e_f = max_err(got[2:], want[2:])            # per-row ce, lse
-            num_rel = abs(float(got[0] / want[0]) - 1.0)
-            lse = want[3]
-            got = tks.sampled_ce_bwd(*args, lse, g_num, dt)
-            torch.cuda.synchronize()
-            want = tks.sampled_ce_bwd_plain(*args, lse, g_num, dt)
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g, w, **CE_GRAD[name])
-            again = tks.sampled_ce_bwd(*args, lse, g_num, dt)
-            assert all(torch.equal(g, a) for g, a in zip(got, again)), (
-                "sampled_ce_bwd does not repeat bit for bit")
-            e_b = max_err(got, want)
-            if aug:
-                errs["fwd"][name], errs["bwd"][name] = e_f, e_b
-            log(f"kernel vs plain  N={N} S={S} D={D} aug={aug} {name}: "
-                f"sampled_ce_fwd (ce, lse) max abs err {e_f:.3e}, Σw·ce "
-                f"relative err {num_rel:.3e} (tolerance {CE_VAL[name]}); "
-                f"sampled_ce_bwd max abs err {e_b:.3e} (tolerance "
-                f"{CE_GRAD[name]}); both repeat bit for bit")
-
-    args = ce_inputs(N, S, D, 1, dev, seed=1)
+    args = ce_inputs(N, S, D, aug, dev, seed=aug + N)
     q, vt, vs, cs, tl, tid, sid, w = args
     times = {"fwd": {}, "bwd": {}}
     for name in DTYPES:
@@ -428,12 +463,12 @@ def ce_phase(dev):
         times["fwd"][name] = dict(
             ms=cuda_ms(lambda: tks.sampled_ce_fwd(*args, dt), 50),
             plain_ms=cuda_ms(lambda: tks.sampled_ce_fwd_plain(*args, dt), 20),
-            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + 1, name, False))))
+            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + aug, name, False))))
         times["bwd"][name] = dict(
             ms=cuda_ms(lambda: tks.sampled_ce_bwd(*args, lse, g_num, dt), 50),
             plain_ms=cuda_ms(lambda: tks.sampled_ce_bwd_plain(
                 *args, lse, g_num, dt), 20),
-            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + 1, name, True))))
+            **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + aug, name, True))))
 
         # yardstick: torch.matmul in `dt` + F.cross_entropy over the
         # materialised [N, 1+S] logits (true logit first), weighted sum
@@ -441,7 +476,9 @@ def ce_phase(dev):
         hit = sid[None, :] == tid[:, None]
 
         def library(q, vt, vs, cs):
-            tl_ = tl + (q * vt[:, :D]).sum(1) + vt[:, D]
+            tl_ = tl + (q * vt[:, :D]).sum(1)
+            if aug:
+                tl_ = tl_ + vt[:, D]
             raw = torch.matmul(q.to(dt), vs.to(dt).T).float() + cs
             logits = torch.cat([tl_[:, None],
                                 torch.where(hit, -1e9, raw)], 1)
@@ -455,13 +492,37 @@ def ce_phase(dev):
         fwd = cuda_ms(lambda: library(*leaves), 20)
         both = cuda_ms(lambda: library(*leaves).backward(), 20)
         times["bwd"][name]["library_ms"] = both - fwd
-    shape = f"N={N} S={S} D={D} aug"
+    shape = f"N={N} S={S} D={D} {'aug' if aug else 'non-aug'}"
     for name in times["fwd"]:
         report("sampled_ce_fwd", shape, name, times["fwd"][name],
                f"torch.matmul in {name} + F.cross_entropy over the "
                f"materialised [N, 1+S] logits, forward")
         report("sampled_ce_bwd", shape, name, times["bwd"][name],
                "the same, forward+backward less its forward")
+    return times
+
+
+def ce_phase(dev):
+    """sampled_ce_fwd / sampled_ce_bwd against their plain versions at c4's
+    training shape (N = 128·50 rows, S = 1024, D = 128), aug and non-aug,
+    and at the MF training shape of syn_xing_full (N = 8192, S = 2048,
+    D = 128, non-aug: MF's `ce` gives no raw rows); then their times in
+    the mode each path takes. Returns ({"c4"|"mf": errs}, {"c4"|"mf":
+    times})."""
+    import torch
+
+    g_num = torch.tensor(0.7, device=dev)   # cotangent of Σ w·ce
+    errs = {"c4": {"fwd": {}, "bwd": {}}, "mf": {"fwd": {}, "bwd": {}}}
+    for key, (N, S, D), modes in (("c4", (6400, 1024, 128), (1, 0)),
+                                  ("mf", (8192, 2048, 128), (0,))):
+        for aug in modes:
+            for name, (e_f, e_b) in ce_check(N, S, D, aug, dev,
+                                             g_num).items():
+                if aug == modes[0]:
+                    errs[key]["fwd"][name] = e_f
+                    errs[key]["bwd"][name] = e_b
+    times = {"c4": ce_timing(6400, 1024, 128, 1, dev, g_num),
+             "mf": ce_timing(8192, 2048, 128, 0, dev, g_num)}
     return errs, times
 
 
@@ -596,21 +657,26 @@ def gru_kernel_phase(dev):
     return errs, times
 
 
-def load_c4(twin, cuts, cell="lstm"):
-    """c4's config on the XING twin's data section, with the recurrent cell
-    set to `cell`, and the prepared dataset (built on first use, then read
-    from its cache)."""
+def load(config, sets):
+    """The config file with `--set` overrides `sets` (the CLI's own
+    parsing), and its prepared dataset (built on first use, then read from
+    its cache), with the seconds that took."""
     from arec_torch.cli.main import load_config, parse_args
     from arec_torch.data.io import load_or_prepare
 
-    sets = {**twin, **{k: v for k, (_, v) in cuts.items()},
-            "data.data_dir": DATA_DIR, "model.cell": cell}
-    argv = ["--config", C4] + [a for k, v in sets.items()
-                               for a in ("--set", f"{k}={v}")]
+    argv = ["--config", config] + [a for k, v in sets.items()
+                                   for a in ("--set", f"{k}={v}")]
     cfg = load_config(parse_args(argv))
     t0 = time.perf_counter()
     ds = load_or_prepare(cfg.data)
     return cfg, ds, time.perf_counter() - t0
+
+
+def load_c4(twin, cuts, cell="lstm"):
+    """c4's config on the XING twin's data section, with the recurrent cell
+    set to `cell`, and the prepared dataset."""
+    return load(C4, {**twin, **{k: v for k, (_, v) in cuts.items()},
+                     "data.data_dir": DATA_DIR, "model.cell": cell})
 
 
 def device_breakdown(what, fn):
@@ -766,7 +832,7 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     import itertools
 
     import torch
-    from arec_torch.data.dataset import eval_batches, seq_batches
+    from arec_torch.data.dataset import seq_batches
     from arec_torch.kernels import sampled_softmax as tks
     from arec_torch.losses.sampling import draw
     from arec_torch.models.seq import (SeqSpec, init_seq, seq_item_latents,
@@ -774,7 +840,6 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     from arec_torch.rng import generator
     from arec_torch.serve import _query_fn
     from arec_torch.tables.engine import attrs_to_device
-    from arec_torch.train.evalu import recall_hits
     from arec_torch.train.step import (_leaves, init_state, make_optimizer,
                                        make_train_step, step_generator,
                                        tree_map)
@@ -808,6 +873,7 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
     torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     state, _ = step(state, on_dev(host[0]), step_generator(tc.seed, 0))
     torch.cuda.synchronize()
@@ -826,6 +892,9 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
         metrics.append(m)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    # read before the checks below: a finite check of a whole table holds
+    # its temporaries (|t| in f32, three bool masks) on the card
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: fn.launches for k, fn in counters.items()}
     # ---- read just after
     assert not any(f.launches for f in others.values()), others
@@ -851,8 +920,8 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
         f"{float(norm[-1]):.4f}; step {step_ms:.3f} ms, "
         f"{tc.batch_size * steps / wall_s:.1f} examples/s "
         f"({positions / wall_s:.0f} valid positions/s); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launches}")
+        f"{peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the first "
+        f"step); launches {launches}")
     log("loss per step: " + " ".join(f"{float(x):.4f}" for x in loss))
 
     b = on_dev(host[steps + 1])
@@ -907,25 +976,498 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
         f"(the forward again in each segment's recompute)")
     del g_1, g_2
 
-    # Recall@K of the trained weights through the serving top-k
-    k, hits, total, n = tc.eval_topk, 0.0, 0.0, 0
     with torch.inference_mode():
         v, bias = seq_item_latents(state.params, spec, item_dev)
-        for batch in itertools.islice(
-                eval_batches(ds, tc.eval_batch_size, spec.pack_len),
-                EVAL_BATCHES):
-            seen = torch.from_numpy(ds.seen_items[batch["user"]]).to(dev)
-            tb = on_dev(batch)
-            q = _query_fn(spec, state.params, item_dev, None, tb)
-            assert torch.isfinite(q).all()
-            h, t = recall_hits(q, v, bias, seen, tb["pos_item"], tb["valid"],
-                               k=k)
-            hits, total, n = hits + float(h), total + float(t), n + 1
+        recall_at_k(
+            ds, tc, dev, spec.pack_len, v, bias,
+            lambda tb: _query_fn(spec, state.params, item_dev, None, tb),
+            f"({cell}) after {steps + 1} steps")
+    return launches
+
+
+def recall_at_k(ds, tc, dev, pack_len, v, bias, query, what):
+    """Recall@K of trained weights through the serving top-k over
+    EVAL_BATCHES `eval_batches`; `query(batch on the card)` gives the
+    query latents."""
+    import itertools
+
+    import torch
+    from arec_torch.data.dataset import eval_batches
+    from arec_torch.train.evalu import recall_hits
+
+    k, hits, total, n = tc.eval_topk, 0.0, 0.0, 0
+    for batch in itertools.islice(
+            eval_batches(ds, tc.eval_batch_size, pack_len), EVAL_BATCHES):
+        seen = torch.from_numpy(ds.seen_items[batch["user"]]).to(dev)
+        tb = {kk: torch.from_numpy(x).to(dev) for kk, x in batch.items()}
+        q = query(tb)
+        assert torch.isfinite(q).all()
+        h, t = recall_hits(q, v, bias, seen, tb["pos_item"], tb["valid"],
+                           k=k)
+        hits, total, n = hits + float(h), total + float(t), n + 1
     recall = hits / max(total, 1.0)
     assert n == EVAL_BATCHES and 0.0 <= recall <= 1.0, (n, recall)
-    log(f"Recall@{k} ({cell}) after {steps + 1} steps over {n} eval batches "
-        f"({int(total)} held-out rows): {recall:.4f}")
+    log(f"Recall@{k} {what} over {n} eval batches ({int(total)} held-out "
+        f"rows): {recall:.4f}")
+    return recall
+
+
+def scatter_case(V, W, N, n_valid, dev, seed):
+    """A table [V, W], sorted unique ids (n_valid in range, then a suffix
+    of sentinels V) and rows [N, W], as the sparse step's write-back hands
+    them to the kernel."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    valid = np.sort(rng.choice(V, size=n_valid, replace=False))
+    ids = np.concatenate([valid, np.full(N - n_valid, V)]).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(V, W, generator=gen, device=dev),
+            torch.from_numpy(ids).to(dev),
+            torch.randn(N, W, generator=gen, device=dev))
+
+
+def bound_scatter(ids, rows, V):
+    """row_scatter: the ids read, each valid row read once from `rows` and
+    written once into the table; no operations."""
+    n_valid = int(((ids >= 0) & (ids < V)).sum())
+    return roofline(4 * ids.shape[0] + 2 * 4 * n_valid * rows.shape[1], 0,
+                    "float32") + (n_valid,)
+
+
+def queued_ms(calls, reps: int = 48) -> float:
+    """Mean device time of `calls`, cycled `reps` times and queued behind
+    a spin of the GPU, so that the CUDA events time the launches back to
+    back on the device and no host gap between them: for a kernel of a few
+    µs, plain back-to-back timing (`cuda_ms`) measures the host's launch
+    cost instead."""
+    import torch
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)       # ~25 ms: the host queues meanwhile
+    start.record()
+    for i in range(reps):
+        calls[i % len(calls)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def scatter_timing(cases):
+    """Kernel, plain version and index_copy_ of the valid prefix (the
+    library yardstick, never called by the port) over write-backs
+    `cases` = [(table, ids, rows), ...], cycled so that the rows written
+    are not left in the 50 MB L2 by the previous call (the sparse step's
+    table rows are cold): device time per call (`queued_ms`), the
+    kernel's back-to-back time with its host launch cost, and the bound
+    of one write-back."""
+    from arec_torch.kernels import row_scatter as trs
+    table, ids, rows = cases[0]
+    bms, by, nbytes, _, n_valid = bound_scatter(ids, rows, table.shape[0])
+    keep = [(t, i[:n_valid].long(), r[:n_valid]) for t, i, r in cases]
+    return dict(
+        ms=queued_ms([lambda c=c: trs.row_scatter(*c) for c in cases]),
+        plain_ms=queued_ms([lambda c=c: trs.scatter_rows_set_plain(*c)
+                            for c in cases]),
+        library_ms=queued_ms([lambda k=k: k[0].index_copy_(0, k[1], k[2])
+                              for k in keep]),
+        back_to_back_ms=cuda_ms(lambda: trs.row_scatter(*cases[0]), 50),
+        bound_ms=bms, bound_by=by, bytes=nbytes, n=ids.shape[0],
+        n_valid=n_valid, width=rows.shape[1])
+
+
+def row_scatter_phase(dev, shapes=MF_SHAPES):
+    """row_scatter against its plain version, bit for bit, at the MF main
+    path's two write-back shapes (1/16 of the ids sentinel) and at the edge
+    cases: an odd width, a base aligned to 8 bytes only, no ids, only
+    sentinel ids; in place, untouched rows unchanged. Then its times at
+    the main-path shapes."""
+    import torch
+    from arec_torch.kernels import row_scatter as trs
+
+    cases = {name: (V, W, N, N - N // 16) for name, (V, W, N) in
+             shapes.items()}
+    cases.update(odd_width=(20_000, 129, 3_000, 2_900),
+                 all_sentinel=(20_000, 258, 64, 0), empty=(20_000, 258, 0, 0),
+                 narrow=(1_000, 3, 300, 250))
+    times = {}
+    for name, (V, W, N, n_valid) in cases.items():
+        table, ids, rows = scatter_case(V, W, N, n_valid, dev, seed=W + N)
+        want = trs.scatter_rows_set_plain(table.clone(), ids, rows)
+        orig = table.clone()
+        ptr = table.data_ptr()
+        before = trs.row_scatter.launches
+        got = trs.scatter_rows_set(table, ids, rows, use_kernel=True)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr and torch.equal(got, want), name
+        assert trs.row_scatter.launches == before + (N > 0), name
+        touched = torch.zeros(V, dtype=torch.bool, device=dev)
+        touched[ids[:n_valid].long()] = True
+        assert torch.equal(got[~touched], orig[~touched]), name
+        log(f"row_scatter vs plain  {name} table [{V}, {W}], {N} ids "
+            f"({n_valid} in range): equal bit for bit, in place, untouched "
+            f"rows unchanged")
+        if name in shapes:
+            # four write-backs of the same shape and valid count into the
+            # table, each into other rows
+            times[name] = scatter_timing([(table, ids, rows)] + [
+                (table, *scatter_case(V, W, N, n_valid, dev, seed=k)[1:])
+                for k in range(1, 4)])
+        del table, rows, want, orig
+    # a view starting at an odd row of a 258-wide table: 8-byte vectors
+    big, ids, rows = scatter_case(20_001, 258, 2_000, 1_900, dev, seed=9)
+    view, row0 = big[1:], big[0].clone()
+    assert view.data_ptr() % 16 == 8
+    want = trs.scatter_rows_set_plain(view.clone(), ids, rows)
+    trs.row_scatter(view, ids, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(view, want) and torch.equal(big[0], row0)
+    log("row_scatter vs plain  a base aligned to 8 bytes only: equal bit "
+        "for bit")
+    for name, t in times.items():
+        log(f"row_scatter {name} table, {t['n']} ids ({t['n_valid']} in "
+            f"range) of {t['width']} f32, device time per call: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"(index_copy_ of the valid prefix) {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
+            f"bytes); kernel back to back (host launch cost included) "
+            f"{t['back_to_back_ms']:.4f} ms")
+    return times
+
+
+def load_mf(sets=MF_SETS, cuts=MF_CUTS):
+    """syn_xing_full's config on one card with the listed cuts, and the
+    prepared dataset."""
+    return load(XING, {**sets, **{k: v for k, (_, v) in cuts.items()}})
+
+
+def all_counters():
+    """{kernel name: the wrapper whose `launches` counts it}, every kernel
+    of the port."""
+    from arec_torch.kernels import row_scatter as trs
+    from arec_torch.kernels import sampled_softmax as tks
+    lstm, gru = scan_counters("lstm")
+    return {**lstm, **gru, "sampled_ce_fwd": tks.sampled_ce_fwd,
+            "sampled_ce_bwd": tks.sampled_ce_bwd,
+            trs.KERNEL: trs.row_scatter}
+
+
+def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
+    """syn_xing_full's MF model served through `Recommender.for_users`
+    from a packed sparse-Adagrad param tree (seeded random weights): 256
+    users with their train items as seen lists, then 3 request-loop lines;
+    the answers against an independent f32 top-k of the same scores; a
+    profile of one batch. MF serving runs no kernel of the port: every
+    count stays 0."""
+    import numpy as np
+    import torch
+    from arec_torch.models.mf import MFSpec, init_mf
+    from arec_torch.serve import Recommender, _query_fn, _serve_loop
+    from arec_torch.train.sparse import pack_tables, table_paths
+
+    cfg, ds, prep_s = load_mf(sets, cuts)
+    log("reduced: " + ", ".join(f"{k} {a} -> {b}"
+                                for k, (a, b) in cuts.items())
+        + f" (no tensor depends on it; {len(ds.train_users)} train rows)")
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    for enc, key in ((spec.item, "item"), (spec.user, "user")):
+        assert not shapes or (enc.total_rows, 2 * enc.width) == shapes[
+            key][:2], (key, enc.total_rows, enc.width)
+    params = pack_tables(
+        init_mf(torch.Generator(device=dev).manual_seed(0), spec),
+        table_paths(False, spec))
+    log(f"MF on the XING twin: items {spec.item.total_rows} rows x "
+        f"{spec.item.width} (fields {[f.name for f in spec.item.schema.fields]}"
+        f", dense {[f.name for f in spec.item.dense_fields]}), users "
+        f"{spec.user.total_rows} x {spec.user.width} (fields "
+        f"{[f.name for f in spec.user.schema.fields]}); packed tables "
+        f"{sum(t.numel() for t in (params['item']['tables']['__fused__'], params['user']['tables']['__fused__'])) * 4 / 1e9:.3f} GB; prep {prep_s:.2f} s")
+
+    t0 = time.perf_counter()
+    rec = Recommender(cfg, params, serve_batch=256, device=dev)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    del params
+    rng = np.random.default_rng(2)
+    users = rng.choice(np.flatnonzero(ds.seen_lengths > 0), 256,
+                       replace=False).astype(np.int32)
+    seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist() for u in users]
+    t0 = time.perf_counter()
+    rec.for_users(users, seen=seen)                  # first call: warm-up
+    first_s = time.perf_counter() - t0
+
+    counters = all_counters()
+    for f in counters.values():                      # ---- the main path
+        f.launches = 0
+    t0 = time.perf_counter()
+    ids = rec.for_users(users, seen=seen)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    lines = [f"{users[0]}\t{','.join(map(str, seen[0][:5]))}",
+             f"{users[1]}", f"{users[2]}\t{','.join(map(str, seen[2]))}"]
+    out = io.StringIO()
+    _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
+    launches = {k: f.launches for k, f in counters.items()}
+    assert not any(launches.values()), launches    # ---- read just after
+
+    V, k = spec.item.schema.num_entities, rec.k
+    assert ids.shape == (256, k), ids.shape
+    for row, s in zip(ids, seen):
+        assert len(set(row.tolist())) == k and ((row >= 0) & (row < V)).all()
+        assert not set(row.tolist()) & set(s), "a seen id was served"
+    answers = out.getvalue().strip().split("\n")
+    assert len(answers) == 3, answers
+    for line, ans, s in zip(lines, answers,
+                            (seen[0][:5], [], seen[2])):
+        first, got = ans.split("\t")
+        got = [int(x) for x in got.split(",")]
+        assert first == line.split("\t")[0] and len(set(got)) == k
+        assert not set(got) & set(s)
+
+    # an independent f32 top-k of the same scores: one product of the
+    # rounded operands the serving top-k multiplies, seen ids set to -inf
+    tb = {"user": torch.from_numpy(users).to(dev)}
+    with torch.inference_mode():
+        q = _query_fn(spec, rec._params, rec._item_dev, rec._user_dev, tb)
+        v, b = rec._vb
+        scores = (q.to(torch.bfloat16).float()
+                  @ v.to(torch.bfloat16).float().T) + b
+        for i, s in enumerate(seen):
+            scores[i, torch.tensor(s, dtype=torch.long, device=dev)] = (
+                -float("inf"))
+        ref_vals = torch.topk(scores, k, dim=1).values
+        mine = scores.gather(1, torch.from_numpy(ids).long().to(dev))
+        mine = torch.sort(mine, dim=1, descending=True).values
+    assert torch.isfinite(q).all()
+    gap = float((mine - ref_vals).abs().max())
+    tol = 1e-5 * float(ref_vals.abs().max()) + 1e-5
+    assert gap <= tol, (gap, tol)
+    log(f"served {len(users)} users (seen lists of up to "
+        f"{max(map(len, seen))} train items) + {len(lines)} loop lines: "
+        f"k={k} distinct unseen ids each; served scores vs an independent "
+        f"f32 top-k: max |Δ| {gap:.3e} (tolerance {tol:.3e}); no kernel "
+        f"launched ({launches})")
+    log(f"startup {startup_s:.3f} s (from the prepared cache, item "
+        f"latents of {V} items included), first batch {first_s:.3f} s, "
+        f"batch of 256 users: {batch_ms:.3f} ms")
+    device_breakdown("one served MF batch",
+                     lambda: rec.for_users(users, seen=seen))
     return launches
+
+
+def dense_state_from_sparse(state, paths):
+    """The dense step's state holding the same values as a packed sparse
+    state: plain tables (the param halves) and their Adagrad accumulators
+    (the other halves) beside the rest's, all copies."""
+    import torch
+    from arec_torch.train.sparse import get_path, set_path, unpack_params
+    from arec_torch.train.step import TrainState, tree_map
+
+    copy = lambda t: t.clone(memory_format=torch.contiguous_format)
+    rest = state.opt_state["rest"]
+    acc = tree_map(copy, rest["sum_of_squares"])
+    for p in paths:
+        t = get_path(state.params, p)
+        acc = set_path(acc, p, copy(t[:, t.shape[1] // 2:]))
+    return TrainState(
+        params=tree_map(copy, unpack_params(state.params, paths)),
+        opt_state={"count": copy(rest["count"]),
+                   "learning_rate": copy(rest["learning_rate"]),
+                   "sum_of_squares": acc},
+        lr_scale=copy(state.lr_scale), step=copy(state.step))
+
+
+def mf_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
+                   steps=TRAIN_STEPS):
+    """syn_xing_full's MF model trained through the sparse touched-rows
+    step: `mf_batches` (seed 0, epoch 0) → `make_sparse_train_step`
+    (packed Adagrad, the row-scatter kernel writing each table back), one
+    warm-up and `steps` counted steps with launches per kernel and a
+    profile of one step; one sparse step against one dense step from the
+    same state (and that step's write-back, kernel against plain version,
+    bit for bit, and timed); Recall@30. Returns (launches, write-back
+    times)."""
+    import itertools
+
+    import torch
+    import arec_torch.train.sparse as tsparse
+    from arec_torch.data.dataset import mf_batches
+    from arec_torch.kernels import row_scatter as trs
+    from arec_torch.models.mf import (MFSpec, init_mf, mf_item_latents,
+                                      mf_loss, mf_user_latents)
+    from arec_torch.tables.engine import attrs_to_device
+    from arec_torch.train.step import (_leaves, make_optimizer,
+                                       make_train_step, step_generator)
+
+    cfg, ds, _ = load_mf(sets, cuts)
+    tc = cfg.train
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    if shapes is MF_SHAPES:
+        assert (tc.batch_size, spec.num_sampled, spec.loss, spec.sampler,
+                tc.optimizer, tc.learning_rate, spec.user.dim, spec.dtype) == (
+            8192, 2048, "ce", "log_uniform", "adagrad", 0.3, 128,
+            torch.bfloat16), (tc, spec)
+    assert tc.sparse_update, tc
+    udev = attrs_to_device(ds.user_attrs.restrict(spec.user.schema),
+                           spec.user, dev)
+    idev = attrs_to_device(ds.item_attrs.restrict(spec.item.schema),
+                           spec.item, dev)
+    paths = tsparse.table_paths(False, spec)
+    opt = make_optimizer(tc.optimizer, tc.learning_rate)
+    state = tsparse.init_sparse_state(
+        init_mf(torch.Generator(device=dev).manual_seed(0), spec), paths,
+        opt, tc.optimizer)
+    step = tsparse.make_sparse_train_step(False, spec, udev, idev, opt,
+                                          tc.learning_rate, tc.optimizer)
+    # the batches are packed on the host ahead of the steps, as a
+    # prefetching input pipeline would; each step moves its own to the card
+    host = list(itertools.islice(mf_batches(ds, tc.batch_size, tc.seed, 0),
+                                 steps + 3))
+    assert len(host) == steps + 3, len(host)
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    state, _ = step(state, on_dev(host[0]), step_generator(tc.seed, 0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    counters = all_counters()
+    for fn in counters.values():                     # ---- the main path
+        fn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        state, m = step(state, on_dev(host[i]), step_generator(tc.seed, i))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30  # before the checks
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # ---- read just after
+    want = {k: 0 for k in counters}
+    want.update({trs.KERNEL: 2 * steps, "sampled_ce_fwd": steps,
+                 "sampled_ce_bwd": steps})
+    assert launches == want, launches
+    loss = torch.stack([m["loss"] for m in metrics]).cpu()
+    assert torch.isfinite(loss).all()
+    assert all(torch.isfinite(t).all() for t in _leaves(state.params))
+    step_ms = wall_s / steps * 1e3
+    log(f"trained MF on the XING twin (sparse touched-rows step, packed "
+        f"Adagrad lr {tc.learning_rate}, batch {tc.batch_size}, "
+        f"S={spec.num_sampled}, {spec.compute_dtype}): first step "
+        f"{first_s:.3f} s, then {steps} steps: loss {float(loss[0]):.4f} -> "
+        f"{float(loss[-1]):.4f}; step {step_ms:.3f} ms, "
+        f"{tc.batch_size * steps / wall_s:.1f} examples/s; peak device "
+        f"memory {peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the "
+        f"first step); "
+        f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    log("loss per step: " + " ".join(f"{float(x):.4f}" for x in loss))
+    b = on_dev(host[steps + 1])
+    gen = step_generator(tc.seed, steps + 1)
+    device_breakdown("one sparse MF train step", lambda: step(state, b, gen))
+
+    # one sparse step against one dense step from the same state, the same
+    # batch and the same key (so the same negatives); the sparse step's
+    # write-back inputs are captured on the way
+    b = on_dev(host[steps + 2])
+    gen = step_generator(tc.seed, steps + 2)
+    dense_state = dense_state_from_sparse(state, paths)
+    dense_step = make_train_step(
+        lambda p, bb, g: mf_loss(p, spec, udev, idev, bb, g),
+        make_optimizer(tc.optimizer, tc.learning_rate), tc.learning_rate)
+    captured = []
+    real = tsparse.scatter_rows_set
+
+    def capture(table, idx, rows, use_kernel):
+        captured.append((idx.clone(), rows.clone()))
+        return real(table, idx, rows, use_kernel)
+
+    tsparse.scatter_rows_set = capture
+    try:
+        state, sm = step(state, b, gen)
+    finally:
+        tsparse.scatter_rows_set = real
+    dense_state, dm = dense_step(dense_state, b, gen)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(sm["loss"] / dm["loss"]) - 1.0)
+    assert loss_rel <= 1e-6, (float(sm["loss"]), float(dm["loss"]))
+    got = tsparse.unpack_params(state.params, paths)
+    worst, n_touched = 0.0, {}
+    for (idx, _), p in zip(captured, paths):
+        g, w = tsparse.get_path(got, p), tsparse.get_path(dense_state.params,
+                                                          p)
+        touched = torch.zeros(g.shape[0], dtype=torch.bool, device=dev)
+        touched[idx[idx < g.shape[0]].long()] = True
+        n_touched[p[0]] = int(touched.sum())
+        assert torch.equal(g[~touched], w[~touched]), p
+        torch.testing.assert_close(g[touched], w[touched], **SPARSE_DENSE)
+        worst = max(worst, float((g[touched] - w[touched]).abs().max()))
+    rest = [(a, c) for a, c in zip(_leaves(tsparse._strip_tables(got, paths)),
+                                   _leaves(tsparse._strip_tables(
+                                       dense_state.params, paths)))]
+    for a, c in rest:
+        torch.testing.assert_close(a, c, **SPARSE_DENSE)
+        worst = max(worst, float((a - c).abs().max()))
+    log(f"one sparse step vs one dense step from the same state: loss "
+        f"{float(sm['loss']):.6f} vs {float(dm['loss']):.6f}; touched rows "
+        f"{n_touched} max |Δ| {worst:.3e} (tolerance {SPARSE_DENSE}), "
+        f"untouched rows equal bit for bit")
+
+    # the dense step's own cost at this shape, for comparison only: a few
+    # steps on the dense copy (its values no longer matter) and a profile
+    dense_n = 5
+    t0 = time.perf_counter()
+    for i in range(1, dense_n + 1):
+        dense_state, _ = dense_step(dense_state, on_dev(host[i]),
+                                    step_generator(tc.seed, i))
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) / dense_n * 1e3
+    log(f"dense MF step (make_train_step on mf_loss, dense Adagrad over "
+        f"every row) at the same shape: {dense_ms:.3f} ms over {dense_n} "
+        f"steps, {tc.batch_size / dense_ms * 1e3:.1f} examples/s; the "
+        f"sparse step: {step_ms:.3f} ms")
+    device_breakdown("one dense MF train step",
+                     lambda: dense_step(dense_state, b, gen))
+    del dense_state
+
+    # the captured write-back: kernel and plain version into two copies of
+    # the same packed table must agree bit for bit (and equal the step's)
+    wb = {}
+    for (idx, rows), p in zip(captured, paths):
+        table = tsparse.get_path(state.params, p)
+        a, c = table.clone(), table.clone()
+        trs.row_scatter(a, idx, rows)
+        trs.scatter_rows_set_plain(c, idx, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(a, c) and torch.equal(a, table), p
+        del c
+        # the same write-back into four copies of the table, so each
+        # call's table rows are cold, as in the step
+        wb[p[0]] = scatter_timing([(t, idx, rows) for t in
+                                   (a, *(table.clone() for _ in range(3)))])
+        del a
+        t = wb[p[0]]
+        log(f"the step's {p[0]} write-back ({t['n']} ids, {t['n_valid']} "
+            f"in range, rows of {t['width']}): kernel == plain version bit "
+            f"for bit; device time per call: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, index_copy_ "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+            f"kernel back to back {t['back_to_back_ms']:.4f} ms")
+
+    with torch.inference_mode():
+        params = tsparse.unpack_params(state.params, paths)
+        v, bias = mf_item_latents(params, spec, idev)
+        recall_at_k(ds, tc, dev, 0, v, bias,
+                    lambda tb: mf_user_latents(params, spec, udev,
+                                               tb["user"]),
+                    f"(MF) after {steps + 3} sparse steps")
+    return launches, wb
 
 
 def free():
@@ -936,6 +1478,8 @@ def free():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"device memory still allocated after the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
 
 def main() -> int:
@@ -950,6 +1494,7 @@ def main() -> int:
     try:
         from arec_torch.kernels import _build, lstm_scan as tk
         from arec_torch.kernels import gru_scan as tg
+        from arec_torch.kernels import row_scatter as trs
         from arec_torch.kernels import sampled_softmax as tks
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -967,7 +1512,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL,
-                            tg.KERNEL, tg.KERNEL_BWD])
+                            tg.KERNEL, tg.KERNEL_BWD, trs.KERNEL])
     log(f"built {sorted(reports) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
@@ -979,12 +1524,18 @@ def main() -> int:
     lstm_errs, lstm_times = lstm_train_phase(dev)
     ce_errs, ce_times = ce_phase(dev)
     gru_errs, gru_times = gru_kernel_phase(dev)
+    scatter_times = row_scatter_phase(dev)
+    free()
     served, trained = {}, {}
     for cell in ("lstm", "gru"):
         served[cell] = slice_phase(dev, cell)
         free()
         trained[cell] = train_phase(dev, cell)
         free()
+    mf_serve_phase(dev)
+    free()
+    trained["mf"], writeback = mf_train_phase(dev)
+    free()
 
     def row(name, source, replaces, fn, launches, err, t, shape, library):
         # c4 computes in bfloat16: the row's numbers are bf16, the f32
@@ -1020,14 +1571,48 @@ def main() -> int:
                                 "library_ms")} for dt in DTYPES}})
         return out
 
-    def ce_row(name, line, fn, err, t, library):
+    def ce_row(name, line, fn, kind, library):
         out = row(name, "arec_torch/csrc/sampled_ce.cu",
                   f"arec/kernels/sampled_softmax.py:{line}",
                   f"arec/kernels/sampled_softmax.py:{fn}",
-                  sum(trained[c][name] for c in trained), err, t,
+                  sum(trained[c][name] for c in trained),
+                  ce_errs["c4"][kind], ce_times["c4"][kind],
                   "N=6400 S=1024 D=128 aug", library)
         out["launches_training"] = {c: trained[c][name] for c in trained}
+        mf_err, mf_t = ce_errs["mf"][kind], ce_times["mf"][kind]
+        out["mf_shape"] = {
+            "shape": "N=8192 S=2048 D=128 non-aug",
+            "max_err_f32": mf_err["float32"],
+            "max_err_bf16": mf_err["bfloat16"],
+            **{dt: {k: mf_t[dt][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for dt in DTYPES}}
         return out
+
+    def scatter_row():
+        t = scatter_times["item"]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "back_to_back_ms", "n", "n_valid", "width")
+        return {"name": trs.KERNEL, "route": "cuda",
+                "source": "arec_torch/csrc/row_scatter.cu",
+                "replaces": "tools/ab_row_update.py:50",
+                "replaces_fn": "tools/ab_row_update.py:_scatter_rows_pallas",
+                "launches": trained["mf"][trs.KERNEL], "max_abs_err": 0.0,
+                "max_err_f32": 0.0, "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "library": "Tensor.index_copy_ of the valid prefix",
+                "timing": "device time per call, launches queued behind "
+                          "a GPU spin, 4 write-backs cycled (CUDA events); "
+                          "back_to_back_ms: 50 launches as the host "
+                          "issues them",
+                "back_to_back_ms": t["back_to_back_ms"], "dtype": "float32",
+                "shape": f"table [{MF_SHAPES['item'][0]}, "
+                         f"{MF_SHAPES['item'][1]}], {t['n']} ids",
+                "user_table": {k: scatter_times["user"][k] for k in keys},
+                "main_path_writeback": {
+                    tab: {k: w[k] for k in keys}
+                    for tab, w in writeback.items()}}
 
     kernels = [
         fwd_row(tk.KERNEL, "arec_torch/csrc/lstm_scan_fwd.cu",
@@ -1045,13 +1630,12 @@ def main() -> int:
             lstm_times["bwd"], "L=50 B=128 H=128",
             "torch.nn.LSTM (cuDNN) forward+backward less its forward, "
             "all-ones mask"),
-        ce_row("sampled_ce_fwd", 146, "_sums_fwd_kernel", ce_errs["fwd"],
-               ce_times["fwd"], "torch.matmul + F.cross_entropy over "
-               "materialised [N, 1+S] logits, forward"),
-        ce_row("sampled_ce_bwd", 189, "_sums_bwd_kernel", ce_errs["bwd"],
-               ce_times["bwd"], "torch.matmul + F.cross_entropy over "
-               "materialised [N, 1+S] logits, forward+backward less its "
-               "forward"),
+        ce_row("sampled_ce_fwd", 146, "_sums_fwd_kernel", "fwd",
+               "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
+               "logits, forward"),
+        ce_row("sampled_ce_bwd", 189, "_sums_bwd_kernel", "bwd",
+               "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
+               "logits, forward+backward less its forward"),
         fwd_row(tg.KERNEL, "arec_torch/csrc/gru_scan_fwd.cu",
                 "arec/kernels/gru_scan.py:38",
                 "arec/kernels/gru_scan.py:_fwd_kernel", "gru",
@@ -1064,6 +1648,7 @@ def main() -> int:
             trained["gru"][tg.KERNEL_BWD], gru_errs["bwd"], gru_times["bwd"],
             "L=50 B=128 H=128",
             GRU_LIBRARY + ", forward+backward less its forward"),
+        scatter_row(),
     ]
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]

@@ -91,3 +91,44 @@ def test_port_init_has_arec_layout(variant):
 def test_bridge_refuses_other_dtypes():
     with pytest.raises(TypeError):
         bridge.to_torch({"w": np.zeros(3, np.float16)})
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "sgd"])
+def test_bridge_carries_the_sparse_state(optimizer):
+    """arec's sparse-step state (packed Adagrad tables, the rest's optax
+    state under "rest") arrives equal, leaf for leaf, to the port's own
+    init_sparse_state of the same weights."""
+    from arec.train import sparse as jsparse
+    from arec.train import step as jstep
+    from arec_torch.models.mf import MFSpec as TMFSpec
+    from arec_torch.train import sparse as tsparse
+    from arec_torch.train import step as tstep
+
+    cfg, params = _arec_params("mf_attr")
+    ds = generate(DATA)
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    jopt = jstep.make_optimizer(optimizer, 0.3)
+    jstate = jstep.decay_lr(jsparse.init_sparse_state(
+        params, jsparse.table_paths(False, spec), jopt, optimizer), 0.5)
+    got = bridge.sparse_train_state_from_arec(
+        jax.tree.map(np.asarray, jstate))
+
+    tcfg = TConfig.from_json(cfg.to_json())
+    tds = tgenerate(tcfg.data)
+    tspec = TMFSpec.from_config(tcfg, tds.user_schema, tds.item_schema)
+    want = tsparse.init_sparse_state(
+        bridge.to_torch(jax.tree.map(np.asarray, params)),
+        tsparse.table_paths(False, tspec),
+        tstep.make_optimizer(optimizer, 0.3), optimizer)
+    assert float(got.lr_scale) == 0.5 and int(got.step) == 0
+    table = got.params["item"]["tables"]["__fused__"]
+    assert table.shape[1] == (2 if optimizer == "adagrad" else 1) * 9
+    assert set(got.opt_state) == {"rest"}
+    assert set(got.opt_state["rest"]) == set(want.opt_state["rest"])
+    for tree in ("params", "opt_state"):
+        g = tstep._leaves(getattr(got, tree))
+        w = tstep._leaves(getattr(want, tree))
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)

@@ -101,3 +101,65 @@ def test_recommender_without_device_refuses_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Recommender(None, None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_CHILD_MF = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from arec_torch import bridge
+    from arec_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from arec_torch.data.dataset import mf_batches
+    from arec_torch.data.io import load_or_prepare
+    from arec_torch.models.mf import MFSpec, init_mf
+    from arec_torch.serve import Recommender
+    from arec_torch.tables.engine import attrs_to_device
+    from arec_torch.train import sparse
+    from arec_torch.train.step import make_optimizer, step_generator
+
+    torch.set_num_threads(1)
+    cfg = Config(
+        data=DataConfig(data_dir=sys.argv[1], syn_users=60, syn_items=50,
+                        syn_interactions=600),
+        model=ModelConfig(model="mf", dim=8, dense_vocab_threshold=12),
+        train=TrainConfig(compute_dtype="float32", num_sampled=16,
+                          sparse_update=True))
+    ds = load_or_prepare(cfg.data)
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    devs = [attrs_to_device(a.restrict(e.schema), e)
+            for a, e in ((ds.user_attrs, spec.user), (ds.item_attrs, spec.item))]
+    opt = make_optimizer("adagrad", 0.3)
+    paths = sparse.table_paths(False, spec)
+    state = sparse.init_sparse_state(
+        init_mf(torch.Generator().manual_seed(0), spec), paths, opt, "adagrad")
+    step = sparse.make_sparse_train_step(False, spec, *devs, opt, 0.3,
+                                         "adagrad")
+    batch = next(mf_batches(ds, 32, 0, 0))
+    state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                    step_generator(0, 0))
+    assert torch.isfinite(m["loss"])
+    ids = Recommender(cfg, bridge.to_numpy(state.params), serve_batch=4,
+                      device="cpu").for_users([1, 2], seen=[[3], []])
+    assert ids.shape == (2, 30) and 3 not in ids[0].tolist()
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("served", ids[0][:3].tolist())
+""")
+
+
+def test_mf_trains_and_serves_with_jax_and_arec_blocked(tmp_path):
+    """The MF slice (a sparse step through the row-scatter wrapper, then
+    for_users from the packed tree) also stands alone."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD_MF, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("served")

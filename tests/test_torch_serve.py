@@ -140,3 +140,123 @@ def test_serve_loop_lines(served):
     assert lines[2] == "!ok step None"
     assert lines[3].startswith("!err NotImplementedError")
     assert len(lines) == 4                     # nothing served after !quit
+
+
+# ---------------------------------------------------------------------------
+# MF family: for_users and the MF loop lines against arec's Recommender
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_mf(tmp_path_factory):
+    """A tiny attribute-aware MF trained by arec's Trainer with the sparse
+    step (so its state holds packed [V, 2D] Adagrad tables); arec serves
+    it from the checkpoint, the port from the packed tree as it is."""
+    tmp = tmp_path_factory.mktemp("slice_mf")
+    cfg = Config(
+        data=DataConfig(dataset="synthetic", data_dir=str(tmp / "d"),
+                        syn_users=300, syn_items=250, syn_interactions=8000),
+        model=ModelConfig(model="mf", dim=16, use_attributes=True,
+                          dense_vocab_threshold=16),
+        train=TrainConfig(batch_size=64, num_sampled=32, n_epoch=1,
+                          steps_per_checkpoint=500, compute_dtype="float32",
+                          sparse_update=True, train_dir=str(tmp / "t")))
+    tr = Trainer(cfg)
+    tr.train()
+    jrec = JRecommender(cfg, serve_batch=SERVE_BATCH)
+    packed = jax.tree.map(np.asarray, jrec._trainer.state.params)
+    tcfg = TConfig.from_json(cfg.to_json())
+    trec = tserve.Recommender(tcfg, packed, serve_batch=SERVE_BATCH,
+                              device="cpu")
+    users = np.arange(40, dtype=np.int32)
+    seen = [tr.ds.seen_items[u][tr.ds.seen_items[u] >= 0].tolist()
+            for u in users]
+    return jrec, trec, tcfg, users, seen
+
+
+def _mf_scores(trec, users, seen):
+    tb = {"user": torch.from_numpy(users)}
+    with torch.inference_mode():
+        q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+                             trec._user_dev, tb).numpy()
+    v, b = (x.float().numpy() for x in trec._vb)
+    return ref_scores(q, v, b, tserve._pad_seen(seen, len(users),
+                                                tserve._auto_width(seen)))
+
+
+@pytest.mark.parametrize("with_seen", [True, False])
+def test_for_users_matches_arec(served_mf, with_seen):
+    jrec, trec, _, users, seen = served_mf
+    seen = seen if with_seen else None
+    want = jrec.for_users(users, seen=seen)
+    got = trec.for_users(users, seen=seen)
+    assert got.shape == want.shape == (len(users), 30)
+    assert got.dtype == np.int32
+    scores = _mf_scores(trec, users, seen)
+    want_vals = np.take_along_axis(scores, want.astype(np.int64), axis=1)
+    assert_ids_equal_up_to_ties(got, want_vals, want, scores)
+    if seen is not None:
+        for row, s in zip(got, seen):
+            assert not set(row.tolist()) & set(s)
+
+
+def test_mf_queries_and_latents_match_arec(served_mf):
+    """The port, served from the packed tree, holds arec's unpacked eval
+    params: user latents and the item latent matrix agree."""
+    jrec, trec, _, users, _ = served_mf
+    t = jrec._trainer
+    want_q = np.asarray(t._query_fn(jrec._params,
+                                    {"user": jnp.asarray(users)}))
+    tb = {"user": torch.from_numpy(users)}
+    with torch.inference_mode():
+        got_q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+                                 trec._user_dev, tb)
+    np.testing.assert_allclose(got_q.numpy(), want_q, rtol=1e-4, atol=1e-5)
+    for got, want in zip(trec._vb, jrec._vb):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_plain_and_packed_trees_serve_alike(served_mf):
+    jrec, trec, tcfg, users, seen = served_mf
+    plain = tserve.Recommender(tcfg, jax.tree.map(np.asarray, jrec._params),
+                               serve_batch=SERVE_BATCH, device="cpu")
+    np.testing.assert_array_equal(plain.for_users(users, seen=seen),
+                                  trec.for_users(users, seen=seen))
+    bad = jax.tree.map(np.asarray, jrec._params)
+    bad["item"]["tables"]["__fused__"] = bad["item"]["tables"][
+        "__fused__"][:, :5]
+    with pytest.raises(ValueError, match="neither plain"):
+        tserve.Recommender(tcfg, bad, serve_batch=SERVE_BATCH, device="cpu")
+
+
+def test_mf_family_refuses_histories(served_mf):
+    _, trec, *_ = served_mf
+    with pytest.raises(ValueError, match="sequence family"):
+        trec.from_histories([[1, 2]])
+    assert trec.for_users([]).shape == (0, 30)
+
+
+def test_mf_serve_loop_lines(served_mf):
+    _, trec, _, users, seen = served_mf
+    u = int(users[3])
+    s = seen[3][:4]
+    inp = io.StringIO(f"{u}\t{','.join(map(str, s))}\n{u}\nx\n!step\n"
+                      f"!quit\n{u}\n")
+    out = io.StringIO()
+    assert tserve._serve_loop(trec, inp, out) == 0
+    lines = out.getvalue().strip().split("\n")
+    with_seen = trec.for_users([u], seen=[s])[0].tolist()
+    plain = trec.for_users([u])[0].tolist()
+    assert lines[0] == f"{u}\t{','.join(map(str, with_seen))}"
+    assert not set(s) & set(with_seen)
+    assert lines[1] == f"{u}\t{','.join(map(str, plain))}"
+    assert lines[2].startswith("!err ValueError")
+    assert lines[3] == "!ok step None"
+    assert len(lines) == 4                     # nothing served after !quit
+
+
+def test_seq_family_refuses_users(served):
+    _, trec, _ = served
+    with pytest.raises(ValueError, match="MF family"):
+        trec.for_users([1, 2])
