@@ -22,6 +22,22 @@ replacing `_sums_bwd_kernel`), or raises. The plain PyTorch versions
 `sampled_ce_fwd_plain` / `sampled_ce_bwd_plain` have the same contracts and
 are taken only for CPU tensors.
 
+`dtype` picks the kernels. bf16, the mode training runs in, takes the
+tensor-core kernels: a FlashAttention-style fused softmax with K = V =
+v_samp, where bf16 tiles of q and v_samp meet in `mma.sync` products with
+f32 accumulators, the online log-sum-exp (forward) and the softmax residue
+wp (backward) are formed on the accumulator registers, and the logits
+never reach device memory. They are bound by the per-logit work beside
+the products (mask, exp, residue) and their tile loops' latency, far
+below the cost of materialising the [N, 1+S] logits. Every residue above
+|g·w|·2^-8 rounds to bf16 as the contract has it, from the logit summed in
+d order: the kernels re-form those that a bound on the tensor cores' sum
+order error (from the norms of the bf16 rows) cannot clear. A smaller
+residue rounded apart moves a gradient term by < 2^-15·|g·w|·|operand|.
+f32, the parity mode, takes CUDA-core kernels with no tensor cores.
+Neither falls back to the other. `scratch_bytes` asks the kernels'
+library how much scratch a call takes; the kernels refuse less.
+
 The kernels read q, v_true and v_samp in f32 (the wrapper casts bf16
 activations up and casts dq / d(v_true) back to their primal's dtype). The
 true side stays in f32 in both modes, as arec's pure path does; arec's TPU
@@ -41,9 +57,6 @@ from arec_torch.kernels import _build
 
 KERNEL = "sampled_ce"
 NEG = -1e9
-_ROWS_PER_BLOCK = 32      # the kernels' row tile (NT in sampled_ce.cu)
-_ROW_SPLITS = 8           # row ranges of the d(v_samp) pass (RS there)
-_DMAX = 256               # the widest D the kernels' register tiles take
 
 
 def _logits_plain(q, v_samp, c_samp, true_ids, sampled_ids, dtype):
@@ -93,12 +106,59 @@ def sampled_ce_bwd_plain(q, v_true, v_samp, c_samp, tl_base, true_ids,
     return dq, dvt, dvs, wp.sum(dim=0), wt
 
 
+def scratch_bytes(N: int, S: int, D: int, dtype, backward: bool) -> int:
+    """The bytes of scratch one call of the forward (or backward) kernels
+    takes, from sampled_ce.cu's own layout (`sampled_ce_scratch_bytes`,
+    which the entry points check their scratch against). Loads the
+    library; raises for dimensions or a dtype the kernels do not take."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sampled_ce takes dtype float32 or bfloat16, not "
+                         f"{dtype}")
+    fn = getattr(_build.load(KERNEL), "sampled_ce_scratch_bytes")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    nbytes = fn(N, S, D, int(dtype == torch.bfloat16), int(backward))
+    if nbytes < 0:
+        raise ValueError(f"sampled_ce does not take N={N}, S={S}, D={D}")
+    return nbytes
+
+
+def _scratch(N, S, D, dtype, backward, dev):
+    nbytes = scratch_bytes(N, S, D, dtype, backward)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev), nbytes
+
+
 def _fn(symbol: str, n_ptr: int, n_int: int):
+    """The C entry point: n_ptr pointers, n_int ints, the scratch's size
+    (int64) and the stream."""
     fn = getattr(_build.load(KERNEL), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+KERNEL_INFO = ("sampled_ce_prep_kernel", "sampled_ce_fwd_mma_kernel",
+               "sampled_ce_fwd_merge_kernel", "sampled_ce_bwd_rows_mma_kernel",
+               "sampled_ce_bwd_rows_combine_kernel",
+               "sampled_ce_bwd_cols_mma_kernel",
+               "sampled_ce_cols_reduce_kernel")
+
+
+def kernel_info(D: int) -> dict[str, dict[str, int]]:
+    """{kernel: registers, local (spilled) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM} of the bf16 kernels as they
+    launch for width D (on the current CUDA device)."""
+    out = (ctypes.c_int * (4 * len(KERNEL_INFO)))()
+    fn = getattr(_build.load(KERNEL), "sampled_ce_kernel_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(D, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"sampled_ce_kernel_info failed: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[4 * k:4 * k + 4]))
+            for k, name in enumerate(KERNEL_INFO)}
 
 
 def _check(kernel, dtype, tensors: dict):
@@ -125,9 +185,9 @@ def _check(kernel, dtype, tensors: dict):
 def _dims(kernel, q, v_true, v_samp):
     N, D = q.shape
     S, Dt = v_samp.shape[0], v_true.shape[1]
-    if not 1 <= D <= _DMAX or Dt not in (D, D + 1) or N < 1 or S < 1:
-        raise ValueError(f"{kernel} takes N, S >= 1, 1 <= D <= {_DMAX} and "
-                         f"v_true of width D or D+1; got q {tuple(q.shape)}, "
+    if Dt not in (D, D + 1) or min(N, S, D) < 1:
+        raise ValueError(f"{kernel} takes N, S, D >= 1 and v_true of "
+                         f"width D or D+1; got q {tuple(q.shape)}, "
                          f"v_true {tuple(v_true.shape)}, v_samp "
                          f"{tuple(v_samp.shape)}")
     return N, D, Dt, S
@@ -156,14 +216,14 @@ def sampled_ce_fwd(q, v_true, v_samp, c_samp, tl_base, true_ids,
     f32 = torch.float32
     ce = torch.empty(N, dtype=f32, device=dev)
     lse = torch.empty(N, dtype=f32, device=dev)
-    part = torch.empty(2 * -(-N // _ROWS_PER_BLOCK), dtype=f32, device=dev)
     sums = torch.empty(2, dtype=f32, device=dev)
+    scratch, nbytes = _scratch(N, S, D, dtype, False, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _fn("sampled_ce_fwd", 12, 5)(
             *(t.data_ptr() for t, _, _ in want.values()), ce.data_ptr(),
-            lse.data_ptr(), part.data_ptr(), sums.data_ptr(), N, D, Dt, S,
-            int(dtype == torch.bfloat16), stream)
+            lse.data_ptr(), sums.data_ptr(), scratch.data_ptr(), N, D, Dt, S,
+            int(dtype == torch.bfloat16), nbytes, stream)
     if rc != 0:
         raise RuntimeError(f"sampled_ce_fwd launch failed: CUDA error {rc}")
     sampled_ce_fwd.launches += 1
@@ -186,14 +246,14 @@ def sampled_ce_bwd(q, v_true, v_samp, c_samp, tl_base, true_ids,
     dvs = torch.empty((S, D), dtype=f32, device=dev)
     dcs = torch.empty(S, dtype=f32, device=dev)
     dtl = torch.empty(N, dtype=f32, device=dev)
-    part = torch.empty(_ROW_SPLITS * S * (D + 1), dtype=f32, device=dev)
+    scratch, nbytes = _scratch(N, S, D, dtype, True, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _fn("sampled_ce_bwd", 16, 5)(
             *(t.data_ptr() for t, _, _ in want.values()), lse.data_ptr(),
             g_num.data_ptr(), dq.data_ptr(), dvt.data_ptr(), dvs.data_ptr(),
-            dcs.data_ptr(), dtl.data_ptr(), part.data_ptr(), N, D, Dt, S,
-            int(dtype == torch.bfloat16), stream)
+            dcs.data_ptr(), dtl.data_ptr(), scratch.data_ptr(), N, D, Dt, S,
+            int(dtype == torch.bfloat16), nbytes, stream)
     if rc != 0:
         raise RuntimeError(f"sampled_ce_bwd launch failed: CUDA error {rc}")
     sampled_ce_bwd.launches += 1

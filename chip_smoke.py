@@ -5,7 +5,10 @@
 
 1. Prints the card (name, power limit) and builds every kernel of the
    serving and training paths from the sources in arec_torch/csrc/ (one
-   nvcc each, all started together).
+   nvcc each, all started together); prints each library's ptxas report,
+   what the CE's tensor-core kernels use as they launch (registers,
+   spills, shared memory, blocks per SM) and their HMMA instruction
+   counts (cuobjdump).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (the LSTM and GRU forwards at the serving
    shapes; their training launches and backwards and the fused
@@ -221,6 +224,42 @@ def bound_ce(N, S, D, Dt, dtype, backward):
     else:
         nbytes = 4 * (ins + 2 * N + 2)
     return roofline(nbytes, (6 if backward else 2) * N * S * D, dtype)
+
+
+def ce_kernel_report(build, tks):
+    """What the CE kernels use as they launch at D = 128 (registers, spilled
+    bytes, dynamic shared memory, resident blocks per SM), and, where the
+    toolkit's cuobjdump is present, the tensor-core (HMMA) instructions in
+    each kernel's SASS; the bf16 kernels must have some. Returns {kernel:
+    HMMA count} ({} without cuobjdump)."""
+    import re
+    import shutil
+    for name, k in tks.kernel_info(128).items():
+        log(f"{name} at D=128: {k['registers']} registers, "
+            f"{k['local_bytes']} local bytes, {k['smem_bytes']} B dynamic "
+            f"shared memory, {k['blocks_per_sm']} blocks per SM")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: no SASS instruction count")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build.library_path(tks.KERNEL))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            m = re.search(r"(sampled_ce_[a-z_]*?_kernel)(?:ILi(\d+)E)?", fn)
+            if m:
+                fn = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    log(f"HMMA instructions in the SASS of {tks.KERNEL}: {counts}")
+    mma = {k: n for k, n in counts.items() if "_mma_" in k}
+    assert mma and all(mma.values()), f"bf16 kernels without HMMA: {mma}"
+    return counts
 
 
 def kernel_phase(dev):
@@ -439,6 +478,15 @@ def ce_check(N, S, D, aug, dev, g_num):
             "sampled_ce_bwd does not repeat bit for bit")
         e_b = max_err(got, want)
         out[name] = (e_f, e_b)
+        if name == "bfloat16":
+            # what the bf16 backward forms again from the d-order logit
+            p = torch.exp(tks._logits_plain(args[0], args[2], args[3],
+                                            args[5], args[6], dt)
+                          - lse[:, None])
+            per_row = ((p > 2.0 ** -8) & (args[7] != 0)[:, None]).sum(1)
+            log(f"  residues above |g·w|·2^-8 (formed again in d order): "
+                f"{int(per_row.sum())}, {float(per_row.float().mean()):.2f} "
+                f"a row, at most {int(per_row.max())}")
         log(f"kernel vs plain  N={N} S={S} D={D} aug={aug} {name}: "
             f"sampled_ce_fwd (ce, lse) max abs err {e_f:.3e}, Σw·ce "
             f"relative err {num_rel:.3e} (tolerance {CE_VAL[name]}); "
@@ -449,7 +497,10 @@ def ce_check(N, S, D, aug, dev, g_num):
 
 def ce_timing(N, S, D, aug, dev, g_num):
     """Times of both CE kernels, their plain versions and the library
-    yardstick at one shape, both dtypes."""
+    yardstick at one shape, both dtypes: device time per call
+    (`queued_ms`: the bf16 kernels take tens of µs, less than their
+    wrapper's host cost), and the kernel's back-to-back time with that
+    host cost (`back_to_back_ms`)."""
     import torch
     import torch.nn.functional as F
     from arec_torch.kernels import sampled_softmax as tks
@@ -460,14 +511,17 @@ def ce_timing(N, S, D, aug, dev, g_num):
     for name in DTYPES:
         dt = getattr(torch, name)
         lse = tks.sampled_ce_fwd_plain(*args, dt)[3]
+        fwd_k = lambda: tks.sampled_ce_fwd(*args, dt)
+        bwd_k = lambda: tks.sampled_ce_bwd(*args, lse, g_num, dt)
         times["fwd"][name] = dict(
-            ms=cuda_ms(lambda: tks.sampled_ce_fwd(*args, dt), 50),
-            plain_ms=cuda_ms(lambda: tks.sampled_ce_fwd_plain(*args, dt), 20),
+            ms=queued_ms([fwd_k]), back_to_back_ms=cuda_ms(fwd_k, 50),
+            plain_ms=queued_ms(
+                [lambda: tks.sampled_ce_fwd_plain(*args, dt)], 16),
             **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + aug, name, False))))
         times["bwd"][name] = dict(
-            ms=cuda_ms(lambda: tks.sampled_ce_bwd(*args, lse, g_num, dt), 50),
-            plain_ms=cuda_ms(lambda: tks.sampled_ce_bwd_plain(
-                *args, lse, g_num, dt), 20),
+            ms=queued_ms([bwd_k]), back_to_back_ms=cuda_ms(bwd_k, 50),
+            plain_ms=queued_ms([lambda: tks.sampled_ce_bwd_plain(
+                *args, lse, g_num, dt)], 16),
             **dict(zip(BOUND_KEYS, bound_ce(N, S, D, D + aug, name, True))))
 
         # yardstick: torch.matmul in `dt` + F.cross_entropy over the
@@ -487,18 +541,22 @@ def ce_timing(N, S, D, aug, dev, g_num):
 
         leaves = [t.clone().requires_grad_() for t in (q, vt, vs, cs)]
         with torch.no_grad():
-            times["fwd"][name]["library_ms"] = cuda_ms(
-                lambda: library(q, vt, vs, cs), 50)
-        fwd = cuda_ms(lambda: library(*leaves), 20)
-        both = cuda_ms(lambda: library(*leaves).backward(), 20)
+            times["fwd"][name]["library_ms"] = queued_ms(
+                [lambda: library(q, vt, vs, cs)], 16)
+        fwd = queued_ms([lambda: library(*leaves)], 16)
+        both = queued_ms([lambda: library(*leaves).backward()], 16)
         times["bwd"][name]["library_ms"] = both - fwd
     shape = f"N={N} S={S} D={D} {'aug' if aug else 'non-aug'}"
     for name in times["fwd"]:
-        report("sampled_ce_fwd", shape, name, times["fwd"][name],
-               f"torch.matmul in {name} + F.cross_entropy over the "
-               f"materialised [N, 1+S] logits, forward")
-        report("sampled_ce_bwd", shape, name, times["bwd"][name],
-               "the same, forward+backward less its forward")
+        for kind, library in (
+                ("fwd", f"torch.matmul in {name} + F.cross_entropy over the "
+                        f"materialised [N, 1+S] logits, forward"),
+                ("bwd", "the same, forward+backward less its forward")):
+            t = times[kind][name]
+            report(f"sampled_ce_{kind}", shape, name, t, library)
+            log(f"  (device times per call, queued behind a GPU spin; "
+                f"the kernel back to back, with its wrapper's host cost: "
+                f"{t['back_to_back_ms']:.4f} ms)")
     return times
 
 
@@ -696,6 +754,10 @@ def device_breakdown(what, fn):
     busy_ms = sum(dev_us.values()) / 1e3
     log(f"profile of {what}: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
+    ce_ms = sum(us for key, us in dev_us.items() if "sampled_ce" in key) / 1e3
+    if ce_ms:
+        log(f"  sampled CE kernels (sampled_ce.cu): {ce_ms:.3f} ms, "
+            f"{ce_ms / busy_ms:.3f} of device busy")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
@@ -1040,19 +1102,30 @@ def queued_ms(calls, reps: int = 48) -> float:
     a spin of the GPU, so that the CUDA events time the launches back to
     back on the device and no host gap between them: for a kernel of a few
     µs, plain back-to-back timing (`cuda_ms`) measures the host's launch
-    cost instead."""
+    cost instead. The spin (at most 2e6 GPU cycles a ms) must outlast the
+    host's queuing, or the device waits on the host between calls: when
+    the host took more than 80 % of it, the run is repeated (three runs at
+    most: a call that waits on the device never fits) with a spin twice as
+    long as the host took."""
     import torch
     for c in calls:
         c()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)       # ~25 ms: the host queues meanwhile
-    start.record()
-    for i in range(reps):
-        calls[i % len(calls)]()
-    end.record()
-    torch.cuda.synchronize()
+    spin_ms = 25.0
+    for _ in range(3):
+        torch.cuda._sleep(int(spin_ms * 2e6))   # the host queues meanwhile
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(reps):
+            calls[i % len(calls)]()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * spin_ms:
+            break
+        spin_ms = 2 * host_ms
     return start.elapsed_time(end) / reps
 
 
@@ -1519,6 +1592,7 @@ def main() -> int:
         regs = sorted({ln.split("Used")[1].strip() for ln in
                        text.splitlines() if "Used" in ln})
         log(f"{name} ptxas: {regs}")
+    hmma = ce_kernel_report(_build, tks)
 
     errs, times = kernel_phase(dev)
     lstm_errs, lstm_times = lstm_train_phase(dev)
@@ -1579,13 +1653,20 @@ def main() -> int:
                   ce_errs["c4"][kind], ce_times["c4"][kind],
                   "N=6400 S=1024 D=128 aug", library)
         out["launches_training"] = {c: trained[c][name] for c in trained}
+        out["hmma"] = {k: n for k, n in hmma.items() if kind in k}
+        out["timing"] = ("device time per call, launches queued behind a "
+                         "GPU spin (CUDA events); back_to_back_ms: 50 "
+                         "launches as the host issues them")
+        out["back_to_back_ms"] = ce_times["c4"][kind]["bfloat16"][
+            "back_to_back_ms"]
         mf_err, mf_t = ce_errs["mf"][kind], ce_times["mf"][kind]
         out["mf_shape"] = {
             "shape": "N=8192 S=2048 D=128 non-aug",
             "max_err_f32": mf_err["float32"],
             "max_err_bf16": mf_err["bfloat16"],
             **{dt: {k: mf_t[dt][k] for k in
-                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "back_to_back_ms")}
                for dt in DTYPES}}
         return out
 

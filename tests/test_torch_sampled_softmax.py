@@ -2,8 +2,9 @@
 gradients against arec's Pallas `fused_sampled_ce_sums` (interpret mode on
 the CPU, as tests/test_fused_softmax.py runs it), in aug and non-aug mode,
 weighted and unweighted, with forced accidental hits and N not a multiple
-of the TPU kernel's 256-row tile; the loss's pure path and the full-softmax
-oracle against arec's; and the samplers' probabilities.
+of the TPU kernel's 256-row tile, and at the tile edges of the port's bf16
+kernels; the loss's pure path and the full-softmax oracle against arec's;
+and the samplers' probabilities.
 
 Inputs come from numpy with a fixed seed and go to both sides. Values at
 tests/test_fused_softmax.py's tolerance (rtol 1e-5, atol 1e-6), gradients
@@ -29,14 +30,14 @@ GRAD = dict(rtol=2e-4, atol=2e-5)
 D, S, V = 16, 32, 200
 
 
-def _inputs(n, aug, seed):
+def _inputs(n, aug, seed, d=D, s=S):
     rng = np.random.default_rng(seed)
     true_ids = rng.integers(0, V, n).astype(np.int32)
-    sampled_ids = rng.integers(0, V, S).astype(np.int32)
-    sampled_ids[: S // 4] = true_ids[: S // 4]         # forced hits
-    f = lambda *s: rng.standard_normal(s).astype(np.float32)
-    return dict(q=f(n, D), v_true=f(n, D + aug) * 0.3, v_samp=f(S, D) * 0.3,
-                c_samp=f(S) * 0.5, tl_base=f(n) * 0.5, true_ids=true_ids,
+    sampled_ids = rng.integers(0, V, s).astype(np.int32)
+    sampled_ids[: s // 4] = true_ids[: s // 4]         # forced hits
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    return dict(q=f(n, d), v_true=f(n, d + aug) * 0.3, v_samp=f(s, d) * 0.3,
+                c_samp=f(s) * 0.5, tl_base=f(n) * 0.5, true_ids=true_ids,
                 sampled_ids=sampled_ids,
                 weights=rng.integers(0, 2, n).astype(np.float32))
 
@@ -156,6 +157,46 @@ def test_sampled_softmax_loss_matches_arec(path, dist):
                                **GRAD)
     np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want_g[1]),
                                **GRAD)
+
+
+# the card tests' tile edges of the bf16 kernels, small: N off the 64-row
+# tile, S < 64 and off the 64-column tile, D off the MMA depth 16, D = 256,
+# and rows that all weigh 0
+EDGES = [(65, 63, 17, False), (77, 40, 40, False), (33, 100, 129, False),
+         (20, 70, 256, False), (40, 32, 16, True)]
+
+
+@pytest.mark.parametrize("aug", [0, 1])
+@pytest.mark.parametrize("n,s,d,weightless", EDGES)
+def test_plain_versions_match_pallas_at_tile_edges(n, s, d, weightless, aug):
+    """The plain versions, which the card tests hold the kernels to at these
+    edges, against arec's Pallas kernel: (Σ w·ce, Σ w) and the gradients of
+    num + 0.5·den to every differentiable input, weighted, with hits."""
+    a = _inputs(n, aug, seed=n + d + aug, d=d, s=s)
+    if weightless:
+        a["weights"][:] = 0.0
+    diff = DIFF + ("weights",)
+
+    def jfn(*xs):
+        kw = dict(a, **dict(zip(diff, xs)))
+        return j_sums(kw["q"], kw["v_true"], kw["v_samp"], kw["c_samp"],
+                      kw["tl_base"], jnp.asarray(a["true_ids"]),
+                      jnp.asarray(a["sampled_ids"]), kw["weights"], 256,
+                      jnp.float32)
+
+    jxs = [jnp.asarray(a[k]) for k in diff]
+    want_num, want_den = jfn(*jxs)
+    want_g = jax.grad(lambda *xs: jfn(*xs)[0] + 0.5 * jfn(*xs)[1],
+                      argnums=tuple(range(len(diff))))(*jxs)
+    t = {k: torch.from_numpy(v.copy()) for k, v in a.items()}
+    leaves = {k: t[k].requires_grad_() for k in diff}
+    num, den = tks.fused_sampled_ce_sums(*t.values(), torch.float32)
+    np.testing.assert_allclose(num.item(), float(want_num), **VAL)
+    np.testing.assert_allclose(den.item(), float(want_den), **VAL)
+    (num + 0.5 * den).backward()
+    for k, g in zip(diff, want_g):
+        np.testing.assert_allclose(leaves[k].grad.numpy(), np.asarray(g),
+                                   err_msg=k, **GRAD)
 
 
 def test_loss_under_a_mesh_raises():
