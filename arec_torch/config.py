@@ -326,3 +326,14 @@ class Config:
                 coerced[name] = value
             out = dataclasses.replace(out, **{sec: dataclasses.replace(cur, **coerced)})
         return out
+
+
+def require_one_device(cfg: Config) -> None:
+    """Raise for a config whose mesh spans more than one device (data ×
+    model > 1, arec's own test for "uses a mesh"): the port runs on one
+    card until the multi-GPU port (ROADMAP A7), and must not run a mesh
+    config there silently."""
+    if cfg.mesh.data * cfg.mesh.model > 1:
+        raise NotImplementedError(
+            f"a {cfg.mesh.data} x {cfg.mesh.model} device mesh waits for the "
+            f"multi-GPU port (ROADMAP A7); set mesh.data = mesh.model = 1")

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source `arec_torch/csrc/<name>.cu` with a plain C entry
-point. It is compiled with nvcc for sm_90a (Hopper) into a shared library
-under `arec_torch/_build/` (git-ignored) at first use, and loaded with
-ctypes. The library's file name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded.
+point (and may include the headers `arec_torch/csrc/*.cuh`). It is
+compiled with nvcc for sm_90a (Hopper) into a shared library under
+`arec_torch/_build/` (git-ignored) at first use, and loaded with ctypes.
+The library's file name carries a hash of the source, the headers and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 Nothing here runs at import time: the CPU-only test environment imports
 every module and has no nvcc.
@@ -41,9 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
+    parts = [(SRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

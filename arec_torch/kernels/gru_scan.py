@@ -15,7 +15,8 @@ has exactly the gradient of the one-pass scan. When autograd records the
 layer runs as `GRULayer`, a `torch.autograd.Function`: its forward is the
 training launch of `csrc/gru_scan_fwd.cu` (which also writes the residual
 hp, the state before each step) and its backward is `csrc/gru_scan_bwd.cu`
-(the reverse sweep plus the dWh reduction). Otherwise (serving,
+(in bf16: a gate pass over all steps at once, the reverse sweep and dWh, on
+the tensor cores; H a multiple of 16). Otherwise (serving,
 `inference_mode`) the serving launch writes h_all only.
 
 For CUDA tensors the wrappers launch the hand-written kernels (sm_90a) or
@@ -29,16 +30,16 @@ from __future__ import annotations
 
 import torch
 
-from arec_torch.kernels.lstm_scan import (_check, _device_of, _dims, _fn,
-                                          _launch_config, _ptrs, scan_layers)
+from arec_torch.kernels.lstm_scan import (_DWH_SPLITS, _check, _device_of,
+                                          _dims, _fn, _launch_config,
+                                          _mma_width, _ptrs, scan_layers)
 
 KERNEL = "gru_scan_fwd"
 KERNEL_BWD = "gru_scan_bwd"
-_DWH_SPLITS = 8    # row ranges of gru_scan_bwd's dWh pass (RS there)
 # f32 words of shared memory per batch row of a CTA, in units of H: h, cast
-# h, cast r⊙h and the r|u gates [2H] (forward); h_prev, its cast, cast r⊙h,
-# dh, dh_new·u (+ drh·r), dh_skip, the r|u gates [2H] and the cast gate
-# derivatives [3H] (backward)
+# h, cast r⊙h and the r|u gates [2H] (forward); h_prev, its copy, r⊙h_prev,
+# dh, dh_new·u (+ drh·r), dh_skip, the r|u gates [2H] and the gate
+# derivatives [3H] (the f32 backward)
 _STATE_WORDS = {KERNEL: 5, KERNEL_BWD: 11}
 
 
@@ -139,7 +140,9 @@ def gru_scan_fwd(xw_tm, wh, mask_bm, h0, dtype=torch.bfloat16,
 
 def gru_layer_bwd(xw_tm, wh, mask_bm, hp, dh_out, dtype=torch.bfloat16):
     """The backward kernel on CUDA tensors → (dxw, dWh, dh0), the contract
-    of `gru_layer_bwd_plain`. Raises on anything it does not take."""
+    of `gru_layer_bwd_plain`. bf16: the three tensor-core stages (gate
+    pass, sweep, dWh; H a multiple of 16); f32: the CUDA-core sweep and
+    dWh. Raises on anything it does not take."""
     dev = _device_of(xw_tm, KERNEL_BWD)
     wh = wh.detach().to(dtype)
     L, B, G, H = _dims(KERNEL_BWD, xw_tm, 3)
@@ -148,20 +151,28 @@ def gru_layer_bwd(xw_tm, wh, mask_bm, hp, dh_out, dtype=torch.bfloat16):
         "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
         "mask_bm": (mask_bm, (B, L), f32), "hp": (hp, (L, B, H), f32),
         "dh_out": (dh_out, (L, B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, G,
-                                    _STATE_WORDS[KERNEL_BWD], dtype, dev)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        _mma_width(KERNEL_BWD, H)
+    else:
+        bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, G,
+                                        _STATE_WORDS[KERNEL_BWD], dtype, dev)
     dxw = torch.empty((L, B, G), dtype=f32, device=dev)
     dwh = torch.empty((H, G), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
-    # cast(r⊙h_prev) of every (t, b), written by the sweep for the dWh pass
+    # cast(r⊙h_prev) of every (t, b), written for the dWh pass (by the gate
+    # pass in bf16, by the sweep in f32)
     rh = torch.empty((L, B, H), dtype=f32, device=dev)
     part = torch.empty((_DWH_SPLITS, H, G), dtype=f32, device=dev)
+    ptrs = _ptrs(xw_tm, wh, mask_bm, hp, dh_out, dxw, dwh, dh0, rh, part)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fn(KERNEL_BWD, "gru_scan_bwd", 10)(
-            *_ptrs(xw_tm, wh, mask_bm, hp, dh_out, dxw, dwh, dh0, rh, part),
-            L, B, H, int(dtype == torch.bfloat16), bt, int(wh_in_smem),
-            stream)
+        if bf16:
+            rc = _fn(KERNEL_BWD, "gru_scan_bwd_bf16", 10, 3)(
+                *ptrs, L, B, H, stream)
+        else:
+            rc = _fn(KERNEL_BWD, "gru_scan_bwd", 10, 5)(
+                *ptrs, L, B, H, bt, int(wh_in_smem), stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan_bwd launch failed: CUDA error {rc}")
     gru_layer_bwd.launches += 1

@@ -13,7 +13,8 @@ scan. When autograd records (grad mode on and an input requires grad) the
 layer runs as `LSTMLayer`, a `torch.autograd.Function`: its forward is the
 training launch of `csrc/lstm_scan_fwd.cu` (which also writes the residuals
 hp, cp: the state before each step) and its backward is
-`csrc/lstm_scan_bwd.cu` (the reverse sweep plus the dWh reduction).
+`csrc/lstm_scan_bwd.cu` (in bf16: a gate pass over all steps at once, the
+reverse sweep and dWh, on the tensor cores).
 Otherwise (serving, `inference_mode`) the serving launch writes h_all and
 cT only.
 
@@ -21,7 +22,8 @@ For CUDA tensors the wrappers launch the hand-written kernels (sm_90a) or
 raise; the plain PyTorch versions `lstm_layer_plain` and
 `lstm_layer_bwd_plain` are taken only for CPU tensors. The TPU workarounds
 (the [L, B, H] mask broadcast, `_pick_tiles`, `padded_seq_len`) do not
-exist here: the kernels read the [B, L] mask and take any L and B.
+exist here: the kernels read the [B, L] mask and take any L and B. The
+bf16 backward (tensor cores) takes H a multiple of 16; the f32 one any H.
 """
 
 from __future__ import annotations
@@ -36,11 +38,14 @@ KERNEL = "lstm_scan_fwd"
 KERNEL_BWD = "lstm_scan_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
 _BT_CHOICES = (1, 2, 4, 8)
-_DWH_SPLITS = 8    # row ranges of lstm_scan_bwd's dWh pass (RS there)
+_DWH_SPLITS = 8    # row ranges of the backwards' dWh passes (RS there)
 # f32 words of shared memory per batch row of a CTA: h, c, cast h [H] and
-# the gates [4H] (forward); cast h, dh, dc, dh_skip [H] and the gates [4H]
-# (backward)
+# the gates [4H] (forward); h, dh, dc, dh_skip [H] and the gates [4H] (the
+# f32 backward)
 _STATE_WORDS = {KERNEL: 7, KERNEL_BWD: 8}
+# the bf16 backward's kernels, in the order of `bwd_kernel_info`: the gate
+# pass, the sweep, the dWh product and the sum of its row-range partials
+BWD_STAGES = ("gates", "sweep", "dwh_mma", "dwh_reduce")
 
 
 def lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
@@ -109,11 +114,11 @@ def lstm_layer_bwd_plain(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
     return dxw, dwh, dh, dc
 
 
-def _fn(source: str, symbol: str, n_ptr: int):
-    """Entry point `symbol` of kernel library `source`: n_ptr pointers, six
-    ints, the stream."""
+def _fn(source: str, symbol: str, n_ptr: int, n_int: int = 6):
+    """Entry point `symbol` of kernel library `source`: n_ptr pointers,
+    n_int ints, the stream."""
     fn = getattr(_build.load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -146,6 +151,31 @@ def _dims(kernel: str, xw_tm, gates: int):
     if L < 1 or B < 1:
         raise ValueError(f"{kernel} needs L, B >= 1, got L={L}, B={B}")
     return L, B, G, G // gates
+
+
+def _mma_width(kernel: str, H: int):
+    """Raise unless the bf16 tensor-core backward takes width H."""
+    if H % 16:
+        raise ValueError(f"{kernel} in bfloat16 runs on the tensor cores "
+                         f"and takes H a multiple of 16, not H={H}")
+
+
+def bwd_kernel_info(kernel: str, H: int) -> dict[str, dict[str, int]]:
+    """{stage: registers, local (spilled) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM} of the bf16 backward
+    `kernel` (KERNEL_BWD here or in gru_scan) as it launches at width H on
+    the current CUDA device."""
+    out = (ctypes.c_int * (4 * len(BWD_STAGES)))()
+    fn = getattr(_build.load(kernel), f"{kernel}_bf16_kernel_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(H, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{kernel}_bf16_kernel_info failed: CUDA error "
+                           f"{rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[4 * k:4 * k + 4]))
+            for k, name in enumerate(BWD_STAGES)}
 
 
 def _launch_config(kernel: str, B: int, H: int, G: int, state_words: int,
@@ -210,8 +240,9 @@ def lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
 def lstm_layer_bwd(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
                    dtype=torch.bfloat16):
     """The backward kernel on CUDA tensors → (dxw, dWh, dh0, dc0), the
-    contract of `lstm_layer_bwd_plain`. Raises on anything it does not
-    take."""
+    contract of `lstm_layer_bwd_plain`. bf16: the three tensor-core stages
+    (gate pass, sweep, dWh; H a multiple of 16); f32: the CUDA-core sweep
+    and dWh. Raises on anything it does not take."""
     dev = _device_of(xw_tm, KERNEL_BWD)
     wh = wh.detach().to(dtype)
     L, B, G, H = _dims(KERNEL_BWD, xw_tm, 4)
@@ -221,19 +252,27 @@ def lstm_layer_bwd(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT,
         "mask_bm": (mask_bm, (B, L), f32), "hp": (hp, (L, B, H), f32),
         "cp": (cp, (L, B, H), f32), "dh_out": (dh_out, (L, B, H), f32),
         "dcT": (dcT, (B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, G,
-                                     _STATE_WORDS[KERNEL_BWD], dtype, dev)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        _mma_width(KERNEL_BWD, H)
+    else:
+        bt, wh_in_smem = _launch_config(KERNEL_BWD, B, H, G,
+                                        _STATE_WORDS[KERNEL_BWD], dtype, dev)
     dxw = torch.empty((L, B, G), dtype=f32, device=dev)
     dwh = torch.empty((H, G), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
     dc0 = torch.empty((B, H), dtype=f32, device=dev)
     part = torch.empty((_DWH_SPLITS, H, G), dtype=f32, device=dev)
+    ptrs = _ptrs(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT, dxw, dwh, dh0, dc0,
+                 part)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _fn(KERNEL_BWD, "lstm_scan_bwd", 12)(
-            *_ptrs(xw_tm, wh, mask_bm, hp, cp, dh_out, dcT, dxw, dwh, dh0,
-                   dc0, part), L, B, H, int(dtype == torch.bfloat16), bt,
-            int(wh_in_smem), stream)
+        if bf16:
+            rc = _fn(KERNEL_BWD, "lstm_scan_bwd_bf16", 12, 3)(
+                *ptrs, L, B, H, stream)
+        else:
+            rc = _fn(KERNEL_BWD, "lstm_scan_bwd", 12, 5)(
+                *ptrs, L, B, H, bt, int(wh_in_smem), stream)
     if rc != 0:
         raise RuntimeError(f"lstm_scan_bwd launch failed: CUDA error {rc}")
     lstm_layer_bwd.launches += 1

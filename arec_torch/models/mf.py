@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from arec_torch.config import Config
+from arec_torch.config import Config, require_one_device
 from arec_torch.data.schema import EntitySchema
 from arec_torch.losses.losses import (
     batch_bpr_loss, batch_mw_loss, bpr_loss, sampled_softmax_loss, warp_loss,
@@ -49,6 +49,7 @@ class MFSpec:
     @staticmethod
     def from_config(cfg: Config, user_schema: EntitySchema,
                     item_schema: EntitySchema) -> "MFSpec":
+        require_one_device(cfg)
         if not cfg.model.use_attributes:
             user_schema = user_schema.id_only()
             item_schema = item_schema.id_only()

@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from arec_torch.config import Config
+from arec_torch.config import Config, require_one_device
 from arec_torch.data.schema import EntitySchema
 from arec_torch.losses.losses import sampled_softmax_loss
 from arec_torch.rng import fold_in, generator, split
@@ -87,6 +87,7 @@ class SeqSpec:
     @staticmethod
     def from_config(cfg: Config, user_schema: EntitySchema,
                     item_schema: EntitySchema) -> "SeqSpec":
+        require_one_device(cfg)
         if cfg.train.loss not in ("ce", "mce"):
             raise ValueError(
                 f"sequence model supports loss ce/mce, not "

@@ -6,16 +6,18 @@
 1. Prints the card (name, power limit) and builds every kernel of the
    serving and training paths from the sources in arec_torch/csrc/ (one
    nvcc each, all started together); prints each library's ptxas report,
-   what the CE's tensor-core kernels use as they launch (registers,
-   spills, shared memory, blocks per SM) and their HMMA instruction
-   counts (cuobjdump).
+   what the tensor-core kernels (the CE's, and the three bf16 stages of
+   each scan backward at H = 128) use as they launch (registers, spills,
+   shared memory, blocks per SM) and their HMMA instruction counts
+   (cuobjdump), which must not be zero.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (the LSTM and GRU forwards at the serving
    shapes; their training launches and backwards and the fused
    sampled-softmax CE forward and backward at c4's training shape; the CE
    again at the MF training shape; the row scatter, bit for bit, into the
    MF model's packed item and user tables and at its edge cases), and
-   times kernel, plain version and a library call (a yardstick only).
+   times kernel, plain version and a library call (a yardstick only); the
+   bf16 scan backwards also by stage (gate pass, sweep, dWh).
 3. Serves the c4 sequence model (configs/c4_lstm_attr_xing.json: LSTM,
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
    twin's item vocabulary (1.3M items, deg-12 tags over 4096) with seeded
@@ -226,40 +228,109 @@ def bound_ce(N, S, D, Dt, dtype, backward):
     return roofline(nbytes, (6 if backward else 2) * N * S * D, dtype)
 
 
+def _kernel_name(mangled):
+    """A kernel's name from its mangled symbol, with its integer or bool
+    template arguments: `lstm_sweep_kernel<1>`."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(n)
+        name = mangled[pos:pos + int(n)]
+        pos += int(n)
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E",
+                                          args.group(1))) + ">"
+    return name
+
+
+def hmma_counts(build, kernel):
+    """{kernel function: tensor-core (HMMA) instructions in its SASS} of
+    the library of `kernel`, by the toolkit's cuobjdump ({} where it is
+    missing)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: no SASS instruction count")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build.library_path(kernel))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    log(f"HMMA instructions in the SASS of {kernel}: {counts}")
+    return counts
+
+
 def ce_kernel_report(build, tks):
     """What the CE kernels use as they launch at D = 128 (registers, spilled
     bytes, dynamic shared memory, resident blocks per SM), and, where the
     toolkit's cuobjdump is present, the tensor-core (HMMA) instructions in
     each kernel's SASS; the bf16 kernels must have some. Returns {kernel:
     HMMA count} ({} without cuobjdump)."""
-    import re
-    import shutil
     for name, k in tks.kernel_info(128).items():
         log(f"{name} at D=128: {k['registers']} registers, "
             f"{k['local_bytes']} local bytes, {k['smem_bytes']} B dynamic "
             f"shared memory, {k['blocks_per_sm']} blocks per SM")
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        log("cuobjdump not found: no SASS instruction count")
-        return {}
-    sass = subprocess.run([tool, "-sass", str(build.library_path(tks.KERNEL))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            m = re.search(r"(sampled_ce_[a-z_]*?_kernel)(?:ILi(\d+)E)?", fn)
-            if m:
-                fn = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    log(f"HMMA instructions in the SASS of {tks.KERNEL}: {counts}")
+    counts = hmma_counts(build, tks.KERNEL)
     mma = {k: n for k, n in counts.items() if "_mma_" in k}
-    assert mma and all(mma.values()), f"bf16 kernels without HMMA: {mma}"
+    assert not counts or (mma and all(mma.values())), (
+        f"bf16 kernels without HMMA: {mma}")
     return counts
+
+
+def scan_bwd_report(build, tk, kernel, H=128):
+    """What the bf16 stages of the scan backward `kernel` use as they
+    launch at width H (registers, spilled bytes, dynamic shared memory,
+    resident blocks per SM), and their HMMA instruction counts: the gate
+    pass, the sweep and the dWh product must each have some. Returns
+    ({stage: launch resources}, {kernel function: HMMA count})."""
+    info = tk.bwd_kernel_info(kernel, H)
+    for stage, k in info.items():
+        log(f"{kernel} bf16 {stage} at H={H}: {k['registers']} registers, "
+            f"{k['local_bytes']} local bytes, {k['smem_bytes']} B dynamic "
+            f"shared memory, {k['blocks_per_sm']} blocks per SM")
+    counts = hmma_counts(build, kernel)
+    mma = {k: n for k, n in counts.items()
+           if any(s in k for s in ("gates", "sweep", "dwh_mma"))}
+    assert not counts or (len(mma) >= 3 and all(mma.values())), (
+        f"{kernel}: bf16 stages without HMMA: {mma}")
+    return info, counts
+
+
+def stage_ms(fn, reps=20):
+    """Device ms per call of each stage of a bf16 scan backward `fn()`
+    (kernels by name under torch.profiler, over `reps` calls): the gate
+    pass, the sweep, the dWh product with the sum of its partials, and
+    any other kernel of the call (the wrapper's cast of Wh)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"gates": 0.0, "sweep": 0.0, "dwh": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        stage = next((s for s, key in (("gates", "gates_kernel"),
+                                       ("sweep", "_sweep_"),
+                                       ("dwh", "dwh_")) if key in e.key),
+                     "other")
+        out[stage] += e.self_device_time_total / reps / 1e3
+    return out
 
 
 def kernel_phase(dev):
@@ -394,12 +465,14 @@ def lstm_train_phase(dev):
             plain_ms=cuda_ms(lambda: tk.lstm_layer_plain(
                 xw, wh, mask, h0, c0, dt, residuals=True), 10),
             **dict(zip(BOUND_KEYS, bound_resid(L, B, H, valid, name))))
+        bwd_k = lambda: tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dt)
         times["bwd"][name] = dict(
-            ms=cuda_ms(lambda: tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh,
-                                                 dcT, dt), 50),
+            ms=queued_ms([bwd_k]), back_to_back_ms=cuda_ms(bwd_k, 50),
             plain_ms=cuda_ms(lambda: tk.lstm_layer_bwd_plain(
                 xw, wh, mask, hp, cp, dh, dcT, dt), 5),
             **dict(zip(BOUND_KEYS, bound_bwd(L, B, H, valid, name))))
+        if name == "bfloat16":
+            stages = stage_ms(bwd_k)
 
     # yardstick: cuDNN's LSTM on the same [L, B, H] sequence (all-ones mask,
     # its own input projection included): its training forward, and its
@@ -425,6 +498,12 @@ def lstm_train_phase(dev):
         report("lstm_scan_bwd", shape, name, times["bwd"][name],
                "cuDNN nn.LSTM forward+backward less its forward, all-ones "
                "mask")
+        log(f"  (lstm_scan_bwd: device time per call, queued behind a GPU "
+            f"spin; back to back, with its wrapper's host cost: "
+            f"{times['bwd'][name]['back_to_back_ms']:.4f} ms)")
+    log(f"lstm_scan_bwd bf16 {shape} by stage (device ms per call, "
+        f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    times["bwd_stages_ms"] = stages
     return errs, times
 
 
@@ -677,13 +756,15 @@ def gru_kernel_phase(dev):
                 txw, twh, tmask, th0, dt, residuals=True), 10),
             **dict(zip(BOUND_KEYS, bound_resid(L, B, H, tvalid, name,
                                                "gru"))))
+        bwd_k = lambda: tg.gru_layer_bwd(txw, twh, tmask, hp, dh, dt)
         times["bwd"][name] = dict(
-            ms=cuda_ms(lambda: tg.gru_layer_bwd(txw, twh, tmask, hp, dh, dt),
-                       50),
+            ms=queued_ms([bwd_k]), back_to_back_ms=cuda_ms(bwd_k, 50),
             plain_ms=cuda_ms(lambda: tg.gru_layer_bwd_plain(
                 txw, twh, tmask, hp, dh, dt), 5),
             **dict(zip(BOUND_KEYS, bound_bwd(L, B, H, tvalid, name,
                                              "gru"))))
+        if name == "bfloat16":
+            stages = stage_ms(bwd_k)
 
     # yardstick: cuDNN's GRU on the same [L, B, H] sequences (all-ones
     # mask, its own input projection included): its serving forward at
@@ -712,6 +793,12 @@ def gru_kernel_phase(dev):
                GRU_LIBRARY + ", training forward")
         report("gru_scan_bwd", f"B={B} L={L} H={H}", name, times["bwd"][name],
                GRU_LIBRARY + ", forward+backward less its forward")
+        log(f"  (gru_scan_bwd: device time per call, queued behind a GPU "
+            f"spin; back to back, with its wrapper's host cost: "
+            f"{times['bwd'][name]['back_to_back_ms']:.4f} ms)")
+    log(f"gru_scan_bwd bf16 B={B} L={L} H={H} by stage (device ms per call, "
+        f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    times["bwd_stages_ms"] = stages
     return errs, times
 
 
@@ -1593,6 +1680,8 @@ def main() -> int:
                        text.splitlines() if "Used" in ln})
         log(f"{name} ptxas: {regs}")
     hmma = ce_kernel_report(_build, tks)
+    bwd_reports = {k: scan_bwd_report(_build, tk, k)
+                   for k in (tk.KERNEL_BWD, tg.KERNEL_BWD)}
 
     errs, times = kernel_phase(dev)
     lstm_errs, lstm_times = lstm_train_phase(dev)
@@ -1695,6 +1784,29 @@ def main() -> int:
                     tab: {k: w[k] for k in keys}
                     for tab, w in writeback.items()}}
 
+    def bwd_row(kernel, line, fn, cell, errs_, times_, library):
+        # the bf16 backward's three tensor-core stages: their device times,
+        # launch resources at H = 128 and HMMA counts, and its time back
+        # to back beside the queued one in `ms`
+        base = kernel.split("_")[0]
+        out = row(kernel, f"arec_torch/csrc/{kernel}.cu",
+                  f"arec/kernels/{base}_scan.py:{line}",
+                  f"arec/kernels/{base}_scan.py:{fn}",
+                  trained[cell][kernel], errs_["bwd"], times_["bwd"],
+                  "L=50 B=128 H=128", library)
+        info, counts = bwd_reports[kernel]
+        out.update(
+            stages_ms=times_["bwd_stages_ms"], stage_resources=info,
+            hmma={k: n for k, n in counts.items() if n},
+            back_to_back_ms=times_["bwd"]["bfloat16"]["back_to_back_ms"],
+            timing="device time per call, launches queued behind a GPU "
+                   "spin (CUDA events); back_to_back_ms: 50 launches as "
+                   "the host issues them; stages_ms: profiler device time "
+                   "per call by kernel")
+        out["f32"]["back_to_back_ms"] = times_["bwd"]["float32"][
+            "back_to_back_ms"]
+        return out
+
     kernels = [
         fwd_row(tk.KERNEL, "arec_torch/csrc/lstm_scan_fwd.cu",
                 "arec/kernels/lstm_scan.py:89",
@@ -1704,13 +1816,9 @@ def main() -> int:
                 "compacted per call",
                 "torch.nn.LSTM (cuDNN) training forward, all-ones mask",
                 "hp/cp"),
-        row(tk.KERNEL_BWD, "arec_torch/csrc/lstm_scan_bwd.cu",
-            "arec/kernels/lstm_scan.py:182",
-            "arec/kernels/lstm_scan.py:_bwd_kernel",
-            trained["lstm"][tk.KERNEL_BWD], lstm_errs["bwd"],
-            lstm_times["bwd"], "L=50 B=128 H=128",
-            "torch.nn.LSTM (cuDNN) forward+backward less its forward, "
-            "all-ones mask"),
+        bwd_row(tk.KERNEL_BWD, 182, "_bwd_kernel", "lstm", lstm_errs,
+                lstm_times, "torch.nn.LSTM (cuDNN) forward+backward less its "
+                "forward, all-ones mask"),
         ce_row("sampled_ce_fwd", 146, "_sums_fwd_kernel", "fwd",
                "torch.matmul + F.cross_entropy over materialised [N, 1+S] "
                "logits, forward"),
@@ -1723,12 +1831,9 @@ def main() -> int:
                 gru_errs["fwd"], gru_times["fwd"], gru_errs["train_fwd"],
                 gru_times["train_fwd"], GRU_LIBRARY + ", serving forward",
                 GRU_LIBRARY + ", training forward", "hp"),
-        row(tg.KERNEL_BWD, "arec_torch/csrc/gru_scan_bwd.cu",
-            "arec/kernels/gru_scan.py:117",
-            "arec/kernels/gru_scan.py:_bwd_kernel",
-            trained["gru"][tg.KERNEL_BWD], gru_errs["bwd"], gru_times["bwd"],
-            "L=50 B=128 H=128",
-            GRU_LIBRARY + ", forward+backward less its forward"),
+        bwd_row(tg.KERNEL_BWD, 117, "_bwd_kernel", "gru", gru_errs,
+                gru_times, GRU_LIBRARY + ", forward+backward less its "
+                "forward"),
         scatter_row(),
     ]
     assert all(k["launches"] > 0 for k in kernels), [

@@ -12,7 +12,9 @@ sides round h and r⊙h to bf16 at the same points but sum in different
 orders, so a value on a rounding boundary can land one bf16 ulp apart and
 carry that through later steps); the backward at tests/test_seq.py's
 gradient tolerance in f32 (rtol 2e-3, atol 2e-4) and 2e-2 / 2e-2 in bf16
-(the gate derivatives are rounded to bf16 before the products)."""
+(the gate derivatives are rounded to bf16 before the products). The
+backward's cases are the LSTM card tests' (c4's shape, ragged B, B = 1024
+at H = 64, B = 129, Wh read from global at H = 192, small widths)."""
 
 import numpy as np
 import pytest
@@ -72,7 +74,8 @@ def test_kernel_matches_plain(dev, dtype, L, B, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,H", [(50, 128, 128), (50, 100, 128),
-                                   (7, 5, 32), (1, 1, 16)])
+                                   (30, 1024, 64), (50, 129, 128),
+                                   (5, 3, 192), (7, 5, 32), (1, 1, 16)])
 def test_backward_kernel_matches_plain(dev, dtype, L, B, H):
     xw, wh, mask, h0, dh = _inputs(L, B, H, dev)
     got_res = tg.gru_scan_fwd(xw, wh, mask, h0, dtype, residuals=True)
@@ -110,6 +113,23 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="must be"):
         tg.gru_layer_bwd(xw, wh, mask, dh[:, :2].contiguous(), dh,
                          torch.float32)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_a_width_off_the_mma(dev):
+    """The bf16 backward runs on the tensor cores (depth 16): H = 24 raises
+    before any launch; f32 takes it."""
+    xw, wh, mask, h0, dh = _inputs(4, 3, 24, dev)
+    hp = tg.gru_layer_plain(xw, wh, mask, h0, torch.float32,
+                            residuals=True)[1]
+    before = tg.gru_layer_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tg.gru_layer_bwd(xw, wh, mask, hp, dh, torch.bfloat16)
+    assert tg.gru_layer_bwd.launches == before
+    got = tg.gru_layer_bwd(xw, wh, mask, hp, dh, torch.float32)
+    want = tg.gru_layer_bwd_plain(xw, wh, mask, hp, dh, torch.float32)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -13,7 +13,11 @@ land one bf16 ulp (2^-8 relative) apart and carry that through later
 steps. The backward is held to tests/test_seq.py's gradient tolerance in
 f32 (rtol 2e-3, atol 2e-4) and to atol 2e-2 / rtol 2e-2 in bf16 (the
 gate derivatives are rounded to bf16 before both products, where an
-ulp-apart pair shifts a term by 2^-8 of its size)."""
+ulp-apart pair shifts a term by 2^-8 of its size). The backward's cases
+cross the bf16 kernels' edges: c4's shape and a ragged B, the widest
+config batch at the syn configs' width (B = 1024, H = 64: a 128-CTA
+sweep), one row past a tile (B = 129), Wh too large for shared memory
+(H = 192: read from global), and small widths."""
 
 import numpy as np
 import pytest
@@ -94,7 +98,8 @@ def _cotangents(L, B, H, dev, seed=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,H", [(50, 128, 128), (50, 100, 128),
-                                   (7, 5, 32), (1, 1, 16)])
+                                   (30, 1024, 64), (50, 129, 128),
+                                   (5, 3, 192), (7, 5, 32), (1, 1, 16)])
 def test_backward_kernel_matches_plain(dev, dtype, L, B, H):
     xw, wh, mask, h0, c0 = _inputs(L, B, H, dev)
     dh, dcT = _cotangents(L, B, H, dev)
@@ -115,6 +120,26 @@ def test_backward_kernel_matches_plain(dev, dtype, L, B, H):
     again = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dtype)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_a_width_off_the_mma(dev):
+    """The bf16 backward runs on the tensor cores (depth 16): H = 24 raises
+    before any launch; f32 takes it."""
+    L, B, H = 4, 3, 24
+    xw, wh, mask, h0, c0 = _inputs(L, B, H, dev)
+    dh, dcT = _cotangents(L, B, H, dev)
+    hp, cp = tk.lstm_layer_plain(xw, wh, mask, h0, c0, torch.float32,
+                                 residuals=True)[2:]
+    before = tk.lstm_layer_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, torch.bfloat16)
+    assert tk.lstm_layer_bwd.launches == before
+    got = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, torch.float32)
+    want = tk.lstm_layer_bwd_plain(xw, wh, mask, hp, cp, dh, dcT,
+                                   torch.float32)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL[torch.float32])
 
 
 @pytest.mark.cuda

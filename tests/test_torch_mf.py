@@ -13,6 +13,7 @@ tolerances: values rtol 1e-5 / atol 1e-6, gradients rtol 2e-4 / atol
 2e-5."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from arec.models import mf as jmf
 from arec.tables import engine as je
 from arec.tables.engine import attrs_to_device as j_attrs
 from arec_torch import bridge
+from arec_torch.cli.main import load_config, parse_args
 from arec_torch.config import Config as TConfig
 from arec_torch.data import dataset as tds
 from arec_torch.data.synthetic import generate as tgenerate
@@ -163,6 +165,24 @@ def test_mesh_paths_raise():
     with pytest.raises(NotImplementedError, match="A7"):
         tmf.mf_loss(tparams, tspec, *tdevs, batch, generator(0),
                     gather_cands=lambda *a: a)
+
+
+@pytest.mark.parametrize("config", ["syn_mf.json", "syn_sharded.json"])
+def test_spec_refuses_a_device_mesh(config):
+    """syn_sharded.json's 2 x 4 mesh raises in `MFSpec.from_config` until
+    the multi-GPU port (ROADMAP A7), rather than train or serve on one
+    device; syn_mf.json's 1 x 1 builds."""
+    cfg = load_config(parse_args(["--config", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", config)]))
+    tds_ = tgenerate(DATA)
+    if cfg.mesh.data * cfg.mesh.model == 1:
+        spec = tmf.MFSpec.from_config(cfg, tds_.user_schema,
+                                      tds_.item_schema)
+        assert spec.user.dim == cfg.model.dim
+    else:
+        with pytest.raises(NotImplementedError, match="A7"):
+            tmf.MFSpec.from_config(cfg, tds_.user_schema, tds_.item_schema)
 
 
 def test_latents_match_arec():

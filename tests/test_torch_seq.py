@@ -9,6 +9,7 @@ kernel path), and bf16 train-path activations. Weights are arec's init, handed o
 bridge; inputs are numpy-seeded."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from arec.data.synthetic import generate
 from arec.models import seq as jseq
 from arec.tables.engine import attrs_to_device as j_attrs
 from arec_torch import bridge
+from arec_torch.cli.main import load_config, parse_args
 from arec_torch.config import Config as TConfig
 from arec_torch.data.synthetic import generate as tgenerate
 from arec_torch.models import seq as tseq
@@ -121,3 +123,22 @@ def test_segmented_state_equals_unsegmented():
         tparams, dataclasses.replace(tspec, max_seq_len=3 * L),
         dev["item"][1], None, batch)
     torch.testing.assert_close(seg, one, **tol)
+
+
+@pytest.mark.parametrize("mesh_data", [1, 2])
+def test_spec_refuses_a_device_mesh(mesh_data):
+    """A config whose mesh spans more than one device raises in
+    `SeqSpec.from_config` until the multi-GPU port (ROADMAP A7), rather
+    than train or serve on one device; the 1 x 1 config builds."""
+    cfg = load_config(parse_args([
+        "--config", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "syn_lstm.json"),
+        "--set", f"mesh.data={mesh_data}"]))
+    tds = tgenerate(DATA)
+    if mesh_data == 1:
+        spec = tseq.SeqSpec.from_config(cfg, tds.user_schema,
+                                        tds.item_schema)
+        assert spec.dim == 64
+    else:
+        with pytest.raises(NotImplementedError, match="A7"):
+            tseq.SeqSpec.from_config(cfg, tds.user_schema, tds.item_schema)

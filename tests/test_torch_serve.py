@@ -11,6 +11,7 @@ ties (torch_topk_check)."""
 
 import dataclasses
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +23,10 @@ from arec.config import Config, DataConfig, ModelConfig, TrainConfig
 from arec.serve import Recommender as JRecommender
 from arec.train.loop import Trainer
 from arec_torch import serve as tserve
+from arec_torch.cli.main import load_config, parse_args
 from arec_torch.config import Config as TConfig
+from arec_torch.data.io import load_or_prepare
+from arec_torch.models.seq import SeqSpec, init_seq
 from torch_topk_check import assert_ids_equal_up_to_ties, ref_scores
 
 torch.set_num_threads(1)
@@ -260,3 +264,28 @@ def test_seq_family_refuses_users(served):
     _, trec, _ = served
     with pytest.raises(ValueError, match="MF family"):
         trec.for_users([1, 2])
+
+
+@pytest.mark.parametrize("config,mesh_data", [
+    ("syn_lstm.json", 1), ("syn_lstm.json", 2), ("syn_sharded.json", 2)])
+def test_recommender_refuses_a_device_mesh(tmp_path, config, mesh_data):
+    """A config whose mesh spans more than one device (syn_lstm.json with
+    mesh.data = 2; syn_sharded.json's MF on 2 x 4) raises in `Recommender`
+    until the multi-GPU port (ROADMAP A7), rather than serve on one device;
+    the 1 x 1 config serves."""
+    cfg = load_config(parse_args([
+        "--config", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", config),
+        "--set", f"mesh.data={mesh_data}", "--set", "model.dim=8",
+        "--set", f"data.data_dir={tmp_path}", "--set", "data.syn_users=60",
+        "--set", "data.syn_items=50", "--set", "data.syn_interactions=600"]))
+    if mesh_data > 1:
+        with pytest.raises(NotImplementedError, match="A7"):
+            tserve.Recommender(cfg, None, device="cpu")
+        return
+    ds = load_or_prepare(cfg.data)
+    spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    rec = tserve.Recommender(cfg, init_seq(torch.Generator().manual_seed(0),
+                                           spec), serve_batch=4, device="cpu")
+    ids = rec.from_histories([[1, 2, 3], [4]])
+    assert ids.shape == (2, cfg.train.eval_topk)
