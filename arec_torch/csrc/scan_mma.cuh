@@ -1,8 +1,10 @@
-// scan_mma.cuh: what the bf16 backward scans (lstm_scan_bwd.cu,
-// gru_scan_bwd.cu) share: the copy and tensor-core primitives, the gate
-// pass, the carry products of their sweeps (Wh's fragments in registers or
-// in shared / global memory) and the general sweeps' shared-memory layout,
-// and the dWh pass.
+// scan_mma.cuh: what the bf16 scans share. The copy and tensor-core
+// primitives and the carry products (Wh's or Whᵀ's fragments in registers or
+// in shared / global memory), used by all four; the backwards'
+// (lstm_scan_bwd.cu, gru_scan_bwd.cu) gate pass, the general sweeps'
+// shared-memory layout and the dWh pass; the forwards' (lstm_scan_fwd.cu,
+// gru_scan_fwd.cu) shared-memory layout, step-input copies and m-tile
+// products.
 //
 // Every product runs on the tensor cores: mma.sync m16n8k16, bf16 operands
 // (rounded to nearest even, as the contract casts them), f32 accumulators.
@@ -35,6 +37,18 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t{15}; }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// σ and tanh of the bf16 forwards' serial steps: the hardware exp2
+// (__expf) and a fast reciprocal (__fdividef), within a few f32 ulps of
+// `sigmoid` and tanhf (tanh within a few units of 2^-24 absolute near 0):
+// far below the bf16 rounding of h that each step's product sees, at a
+// fraction of the instructions of expf and an IEEE division, which bound
+// the step (chip_knockout.py).
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float fast_tanh(float x) { return 2.0f * fast_sigmoid(2.0f * x) - 1.0f; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -305,21 +319,30 @@ __host__ __device__ constexpr Sweep reg_layout(int H, int G) {
   return sweep_layout(H, G, false, 2, 3, 0);
 }
 
-// Zero every buffer but Wh, and start the copy of Wh [H, G] into shared
-// memory when it is there (completed by the caller's cp_async_wait_all).
-__device__ __forceinline__ void sweep_init(unsigned char* smem, const Sweep& l,
-                                           const bf16* __restrict__ wh, int H, int G) {
-  for (size_t i = l.qd / 16 + threadIdx.x; i < l.total / 16; i += blockDim.x)
+// Zero the shared bytes [from, total), and start the copy of the bf16
+// matrix w [rows, cols] into w_s (row stride cols + PADB) when w_s is given
+// (completed by the caller's cp_async_wait_*).
+__device__ __forceinline__ void smem_init(unsigned char* smem, size_t from, size_t total,
+                                          bf16* w_s, const bf16* __restrict__ w, int rows,
+                                          int cols) {
+  for (size_t i = from / 16 + threadIdx.x; i < total / 16; i += blockDim.x)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  if (l.qd > 0) {
-    bf16* w_s = reinterpret_cast<bf16*>(smem + l.w);
-    const int chunks = G / 8;
-    for (int idx = threadIdx.x; idx < H * chunks; idx += blockDim.x) {
+  if (w_s != nullptr) {
+    const int chunks = cols / 8;
+    for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
       const int k = idx / chunks;
       const int c = 8 * (idx - k * chunks);
-      cp_async16(w_s + k * (G + PADB) + c, wh + static_cast<size_t>(k) * G + c);
+      cp_async16(w_s + k * (cols + PADB) + c, w + static_cast<size_t>(k) * cols + c);
     }
   }
+}
+
+// Zero every buffer but Wh, and start the copy of Wh [H, G] into shared
+// memory when it is there.
+__device__ __forceinline__ void sweep_init(unsigned char* smem, const Sweep& l,
+                                           const bf16* __restrict__ wh, int H, int G) {
+  smem_init(smem, l.qd, l.total, l.qd > 0 ? reinterpret_cast<bf16*>(smem + l.w) : nullptr, wh,
+            H, G);
 }
 
 // Start the copies of step t's inputs for the CTA's rows b0.. (nrows of
@@ -396,20 +419,22 @@ __device__ __forceinline__ void carry_product(const bf16* W, int ldw, int row0, 
   for (int e = 0; e < 4; ++e) acc[e] = c0[e] + c1[e];
 }
 
-// The sweeps at the configs' widths (H = 64, 128) keep Wh in registers:
-// a[ks] is the m16n8k16 A fragment of Wh's rows row0..row0+15 (this warp's
-// units) and columns 16ks..16ks+15, loaded once.
+// The scans at the configs' widths (H = 64, 128) keep their weight in
+// registers: a[ks] is the m16n8k16 A fragment of rows row0..row0+15 and
+// columns 16ks..16ks+15 of the bf16 matrix w (row stride ld), loaded once:
+// Wh [H, G] in the sweeps (rows are this warp's units), Whᵀ [G, H] in the
+// forwards (rows are one gate block's columns for this warp's units).
 template <int KS>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const bf16* __restrict__ wh,
-                                             int G, int row0) {
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const bf16* __restrict__ w,
+                                             int ld, int row0) {
   const int lane = threadIdx.x & 31;
-  const bf16* p = wh + static_cast<size_t>(row0 + (lane >> 2)) * G + 2 * (lane & 3);
+  const bf16* p = w + static_cast<size_t>(row0 + (lane >> 2)) * ld + 2 * (lane & 3);
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     a[ks][0] = ldg32(p + KSTEP * ks);
-    a[ks][1] = ldg32(p + 8 * G + KSTEP * ks);
+    a[ks][1] = ldg32(p + 8 * ld + KSTEP * ks);
     a[ks][2] = ldg32(p + KSTEP * ks + 8);
-    a[ks][3] = ldg32(p + 8 * G + KSTEP * ks + 8);
+    a[ks][3] = ldg32(p + 8 * ld + KSTEP * ks + 8);
   }
 }
 
@@ -438,6 +463,113 @@ __device__ __forceinline__ void carry_product_reg(const uint32_t (&a)[KS][4], co
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] = (c[0][e] + c[1][e]) + (c[2][e] + c[3][e]);
+}
+
+// ------------------------------------------------------------- forwards ----
+// A forward CTA owns BT batch rows for the whole sequence. Dynamic shared
+// memory, in bytes from its start: Whᵀ [G][H + PADB] bf16 (the general
+// kernels, when it fits), `nq` buffers [BT][H + PADB] bf16 of the step
+// products' B operands (q(h); the GRU's q(r⊙h)), NBUF buffers of the step
+// inputs (xw[t]'s rows [BT][G + PADF] and the mask [BT], f32) and `nstate`
+// [BT][H + PADF] f32 states (the general kernels').
+constexpr int NBUF = 3;   // step inputs are copied in two steps ahead
+
+struct Fwd {
+  size_t w, q, x, m, s, total;
+};
+
+__host__ __device__ constexpr Fwd fwd_layout(int H, int G, bool w_smem, int nq, int nstate) {
+  const size_t w = w_smem ? align16(static_cast<size_t>(G) * (H + PADB) * sizeof(bf16)) : 0;
+  const size_t q = nq * align16(static_cast<size_t>(BT) * (H + PADB) * sizeof(bf16));
+  const size_t x = NBUF * static_cast<size_t>(BT) * (G + PADF) * sizeof(float);
+  const size_t m = align16(NBUF * BT * sizeof(float));
+  const size_t s = nstate * static_cast<size_t>(BT) * (H + PADF) * sizeof(float);
+  return Fwd{0, w, w + q, w + q + x, w + q + x + m, w + q + x + m + s};
+}
+
+// Start the copies of step t's inputs for the CTA's rows b0.. (nrows of
+// them) into buffer `buf`: xw[t]'s rows [G] and mask[:, t]. Rows past the
+// batch are never loaded (they stay 0).
+__device__ __forceinline__ void fwd_prefetch(unsigned char* smem, const Fwd& l, int buf, int t,
+                                             const float* __restrict__ xw,
+                                             const float* __restrict__ mask, int b0, int nrows,
+                                             int L, int B, int G) {
+  float* x_s = reinterpret_cast<float*>(smem + l.x) + buf * BT * (G + PADF);
+  float* m_s = reinterpret_cast<float*>(smem + l.m) + buf * BT;
+  const float* src = xw + (static_cast<size_t>(t) * B + b0) * G;
+  const int gq = G / 4;
+  for (int idx = threadIdx.x; idx < nrows * gq; idx += blockDim.x) {
+    const int r = idx / gq;
+    const int c = 4 * (idx - r * gq);
+    cp_async16(x_s + r * (G + PADF) + c, src + static_cast<size_t>(r) * G + c);
+  }
+  if (static_cast<int>(threadIdx.x) < nrows)
+    cp_async4(m_s + threadIdx.x, mask + static_cast<size_t>(b0 + threadIdx.x) * L + t);
+}
+
+// b[i] holds the B fragments (b0 b1 of k-step 2i, then b0 b1 of k-step
+// 2i+1) of a product over k < 16·KS with B = q [BT][ldq] (stored [n][k]) in
+// shared memory: one ldmatrix.x4 per two k-steps, all issued together.
+template <int KS>
+__device__ __forceinline__ void load_b_frags(uint32_t (&b)[KS / 2][4], const bf16* q, int ldq) {
+  static_assert(KS % 2 == 0, "k-steps in pairs");
+  const int lane = threadIdx.x & 31;
+  const bf16* p = q + (lane & 7) * ldq + (lane >> 3) * 8;
+#pragma unroll
+  for (int i = 0; i < KS / 2; ++i) ldsm_x4(b[i], p + 2 * KSTEP * i);
+}
+
+// acc[m] = the m16n8 product over k < 16·KS of the register A fragments of
+// m-tile M0 + m by the B fragments b, for the NM m-tiles; their chains are
+// interleaved (a lone m-tile's in two, even and odd k-steps, added last),
+// each summed in k order.
+template <int M0, int NM, int MA, int KS>
+__device__ __forceinline__ void mtile_products(const uint32_t (&a)[MA][KS][4],
+                                               const uint32_t (&b)[KS / 2][4],
+                                               float (&acc)[NM][4]) {
+  static_assert(M0 + NM <= MA, "m-tiles inside the fragments");
+  constexpr int NC = NM < 2 ? 2 : 1;   // chains an m-tile is split into
+  float c[NM][NC][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      mma_bf16(c[m][ks % NC], a[M0 + m][ks], b[ks / 2][2 * (ks & 1)], b[ks / 2][2 * (ks & 1) + 1]);
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = NC == 2 ? c[m][0][e] + c[m][NC - 1][e] : c[m][0][e];
+}
+
+// How a bf16 forward launches at width H: its kernel, threads, dynamic
+// shared memory and whether Whᵀ sits in shared memory (the general kernel)
+struct FwdPlan {
+  const void* fn;
+  int threads;
+  size_t smem;
+  bool w_smem;
+};
+
+// the plan of the general kernel `fn(w_smem)` at width H with `nq` B
+// buffers and `nstate` states: Whᵀ in shared memory when it fits beside
+// them; false where even the buffers do not fit
+template <typename Fn>
+bool plan_general(int H, int G, int nq, int nstate, Fn fn, FwdPlan* p) {
+  const size_t limit = static_cast<size_t>(smem_optin());
+  p->w_smem = fwd_layout(H, G, true, nq, nstate).total <= limit;
+  p->smem = fwd_layout(H, G, p->w_smem, nq, nstate).total;
+  p->fn = fn(p->w_smem);
+  p->threads = (H / 16 < MAX_WARPS ? H / 16 : MAX_WARPS) * 32;
+  return p->smem <= limit;
+}
+
+// launch the planned forward over cdiv(B, BT) CTAs with `args` (pointers
+// to the kernel's arguments)
+cudaError_t launch_fwd(const FwdPlan& p, int B, void** args, cudaStream_t s) {
+  cudaError_t e = set_smem(p.fn, p.smem);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernel(p.fn, dim3(cdiv(B, BT)), dim3(p.threads), args, p.smem, s);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ dWh ----

@@ -17,7 +17,10 @@ training launch of `csrc/gru_scan_fwd.cu` (which also writes the residual
 hp, the state before each step) and its backward is `csrc/gru_scan_bwd.cu`
 (in bf16: a gate pass over all steps at once, the reverse sweep and dWh, on
 the tensor cores; H a multiple of 16). Otherwise (serving,
-`inference_mode`) the serving launch writes h_all only.
+`inference_mode`) the serving launch writes h_all only. The forward picks
+its kernel as the LSTM's does (`lstm_scan.fwd_route`): bf16 with H a
+multiple of 16 takes the tensor-core kernel, f32 and bf16 at any other
+width the CUDA-core one.
 
 For CUDA tensors the wrappers launch the hand-written kernels (sm_90a) or
 raise; the plain PyTorch versions `gru_layer_plain` and
@@ -31,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from arec_torch.kernels.lstm_scan import (_DWH_SPLITS, _check, _device_of,
-                                          _dims, _fn, _launch_config,
+                                          _dims, _fn, _fwd_launch,
+                                          _fwd_weight, _launch_config,
                                           _mma_width, _ptrs, scan_layers)
 
 KERNEL = "gru_scan_fwd"
@@ -114,26 +118,19 @@ def gru_layer_bwd_plain(xw_tm, wh, mask_bm, hp, dh_out,
 def gru_scan_fwd(xw_tm, wh, mask_bm, h0, dtype=torch.bfloat16,
                  residuals: bool = False):
     """The forward kernel on CUDA tensors → (h_all,), and with
-    residuals=True (h_all, hp). Raises on anything it does not take."""
+    residuals=True (h_all, hp): the tensor-core kernel or the CUDA-core one
+    by `lstm_scan.fwd_route`. Raises on anything it does not take."""
     dev = _device_of(xw_tm, KERNEL)
-    wh = wh.detach().to(dtype)
     L, B, G, H = _dims(KERNEL, xw_tm, 3)
+    route, name, w, shape = _fwd_weight(wh, dtype, H, G)
     f32 = torch.float32
     _check(KERNEL, dtype, xw_tm, {
-        "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
+        "xw_tm": (xw_tm, (L, B, G), f32), name: (w, shape, dtype),
         "mask_bm": (mask_bm, (B, L), f32), "h0": (h0, (B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL, B, H, G, _STATE_WORDS[KERNEL],
-                                    dtype, dev)
     outs = [torch.empty((L, B, H), dtype=f32, device=dev)
             for _ in range(2 if residuals else 1)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        symbol = "gru_scan_fwd_resid" if residuals else "gru_scan_fwd"
-        rc = _fn(KERNEL, symbol, 4 + len(outs))(
-            *_ptrs(xw_tm, wh, mask_bm, h0, *outs), L, B, H,
-            int(dtype == torch.bfloat16), bt, int(wh_in_smem), stream)
-    if rc != 0:
-        raise RuntimeError(f"gru_scan_fwd launch failed: CUDA error {rc}")
+    _fwd_launch(KERNEL, route, residuals, _ptrs(xw_tm, w, mask_bm, h0, *outs),
+                L, B, H, G, dtype, dev, _STATE_WORDS[KERNEL])
     gru_layer.launches += 1
     return tuple(outs)
 

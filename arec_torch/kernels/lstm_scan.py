@@ -23,7 +23,11 @@ raise; the plain PyTorch versions `lstm_layer_plain` and
 `lstm_layer_bwd_plain` are taken only for CPU tensors. The TPU workarounds
 (the [L, B, H] mask broadcast, `_pick_tiles`, `padded_seq_len`) do not
 exist here: the kernels read the [B, L] mask and take any L and B. The
-bf16 backward (tensor cores) takes H a multiple of 16; the f32 one any H.
+forward picks its kernel by dtype and width (`fwd_route`): bf16 with H a
+multiple of 16 (the tensor cores' depth) takes the tensor-core kernel;
+f32, the parity mode, and bf16 at any other width take the CUDA-core
+kernel. The bf16 backward (tensor cores) takes H a multiple of 16 and
+raises on any other; the f32 one takes any H.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ _STATE_WORDS = {KERNEL: 7, KERNEL_BWD: 8}
 # the bf16 backward's kernels, in the order of `bwd_kernel_info`: the gate
 # pass, the sweep, the dWh product and the sum of its row-range partials
 BWD_STAGES = ("gates", "sweep", "dwh_mma", "dwh_reduce")
+# the bf16 forward's launches, in the order of `fwd_kernel_info`
+FWD_LAUNCHES = ("serving", "training")
 
 
 def lstm_layer_plain(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
@@ -160,22 +166,44 @@ def _mma_width(kernel: str, H: int):
                          f"and takes H a multiple of 16, not H={H}")
 
 
-def bwd_kernel_info(kernel: str, H: int) -> dict[str, dict[str, int]]:
-    """{stage: registers, local (spilled) bytes per thread, dynamic shared
-    memory per block, resident blocks per SM} of the bf16 backward
-    `kernel` (KERNEL_BWD here or in gru_scan) as it launches at width H on
-    the current CUDA device."""
-    out = (ctypes.c_int * (4 * len(BWD_STAGES)))()
-    fn = getattr(_build.load(kernel), f"{kernel}_bf16_kernel_info")
+def fwd_route(dtype, H: int) -> str:
+    """The forward kernel that a CUDA launch at `dtype` and width H takes:
+    "mma", the tensor-core kernel, for bf16 with H a multiple of 16 (the
+    MMA's depth); "cuda_core", the first version's kernel, for f32 (the
+    parity mode) and for bf16 at any other width. A dispatch on dtype and
+    width, not a fallback: a launch takes its route's kernel or raises."""
+    return "mma" if dtype == torch.bfloat16 and H % 16 == 0 else "cuda_core"
+
+
+def _kernel_info(kernel: str, H: int, names) -> dict[str, dict[str, int]]:
+    """{name: registers, local (spilled) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM} of the bf16 kernels `names`
+    of library `kernel` (`<kernel>_bf16_kernel_info` gives them in that
+    order), as they launch at width H on the current CUDA device."""
+    out = (ctypes.c_int * (4 * len(names)))()
+    symbol = f"{kernel}_bf16_kernel_info"
+    fn = getattr(_build.load(kernel), symbol)
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(H, ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
-        raise RuntimeError(f"{kernel}_bf16_kernel_info failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
     keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
     return {name: dict(zip(keys, out[4 * k:4 * k + 4]))
-            for k, name in enumerate(BWD_STAGES)}
+            for k, name in enumerate(names)}
+
+
+def bwd_kernel_info(kernel: str, H: int) -> dict[str, dict[str, int]]:
+    """The launch resources (`_kernel_info`) of the bf16 backward `kernel`'s
+    stages (KERNEL_BWD here or in gru_scan) at width H."""
+    return _kernel_info(kernel, H, BWD_STAGES)
+
+
+def fwd_kernel_info(kernel: str, H: int) -> dict[str, dict[str, int]]:
+    """The launch resources (`_kernel_info`) of the bf16 tensor-core forward
+    `kernel` (KERNEL here or in gru_scan), serving and training launches,
+    at width H (a multiple of 16)."""
+    return _kernel_info(kernel, H, FWD_LAUNCHES)
 
 
 def _launch_config(kernel: str, B: int, H: int, G: int, state_words: int,
@@ -206,33 +234,62 @@ def _device_of(xw_tm, kernel: str):
     return xw_tm.device
 
 
+def _fwd_weight(wh, dtype, H: int, G: int):
+    """(route, name, weight, shape): the forward kernel's route
+    (`fwd_route`) and Wh as that kernel takes it, cast to dtype, under the
+    name and with the shape `_check` holds it to: Wh [H, G] for the
+    CUDA-core kernel; Whᵀ [G, H] for the tensor-core one, cast and
+    transposed in one copy."""
+    route = fwd_route(dtype, H)
+    if route == "mma":
+        return (route, "wh (transposed)", wh.detach().t().to(
+            dtype, memory_format=torch.contiguous_format), (G, H))
+    return route, "wh", wh.detach().to(dtype), (H, G)
+
+
+def _fwd_launch(kernel: str, route: str, residuals: bool, ptrs, L: int,
+                B: int, H: int, G: int, dtype, dev, state_words: int):
+    """Launch the forward `kernel` (KERNEL here or in gru_scan) of `route`
+    on the pointers `ptrs` (inputs, then outputs) on the current stream:
+    the serving entry point or, with residuals, the training one. Raises
+    unless it launched."""
+    symbol = kernel + ("_bf16" if route == "mma" else "") + (
+        "_resid" if residuals else "")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if route == "mma":
+            rc = _fn(kernel, symbol, len(ptrs), 3)(*ptrs, L, B, H, stream)
+        else:
+            bt, wh_in_smem = _launch_config(kernel, B, H, G, state_words,
+                                            dtype, dev)
+            rc = _fn(kernel, symbol, len(ptrs))(
+                *ptrs, L, B, H, int(dtype == torch.bfloat16), bt,
+                int(wh_in_smem), stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
 def lstm_scan_fwd(xw_tm, wh, mask_bm, h0, c0, dtype=torch.bfloat16,
                   residuals: bool = False):
     """The forward kernel on CUDA tensors → (h_all, cT), and with
-    residuals=True also (hp, cp). Raises on anything it does not take."""
+    residuals=True also (hp, cp): the tensor-core kernel or the CUDA-core
+    one by `fwd_route`. Raises on anything it does not take."""
     dev = _device_of(xw_tm, KERNEL)
-    wh = wh.detach().to(dtype)
     L, B, G, H = _dims(KERNEL, xw_tm, 4)
+    route, name, w, shape = _fwd_weight(wh, dtype, H, G)
     f32 = torch.float32
     _check(KERNEL, dtype, xw_tm, {
-        "xw_tm": (xw_tm, (L, B, G), f32), "wh": (wh, (H, G), dtype),
+        "xw_tm": (xw_tm, (L, B, G), f32), name: (w, shape, dtype),
         "mask_bm": (mask_bm, (B, L), f32), "h0": (h0, (B, H), f32),
         "c0": (c0, (B, H), f32)})
-    bt, wh_in_smem = _launch_config(KERNEL, B, H, G,
-                                     _STATE_WORDS[KERNEL], dtype, dev)
     outs = [torch.empty((L, B, H), dtype=f32, device=dev),
             torch.empty((B, H), dtype=f32, device=dev)]
     if residuals:
         outs += [torch.empty((L, B, H), dtype=f32, device=dev)
                  for _ in range(2)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        symbol = "lstm_scan_fwd_resid" if residuals else "lstm_scan_fwd"
-        rc = _fn(KERNEL, symbol, 5 + len(outs))(
-            *_ptrs(xw_tm, wh, mask_bm, h0, c0, *outs), L, B, H,
-            int(dtype == torch.bfloat16), bt, int(wh_in_smem), stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_scan_fwd launch failed: CUDA error {rc}")
+    _fwd_launch(KERNEL, route, residuals,
+                _ptrs(xw_tm, w, mask_bm, h0, c0, *outs), L, B, H, G, dtype,
+                dev, _STATE_WORDS[KERNEL])
     lstm_layer.launches += 1
     return tuple(outs)
 

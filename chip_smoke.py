@@ -6,18 +6,20 @@
 1. Prints the card (name, power limit) and builds every kernel of the
    serving and training paths from the sources in arec_torch/csrc/ (one
    nvcc each, all started together); prints each library's ptxas report,
-   what the tensor-core kernels (the CE's, and the three bf16 stages of
-   each scan backward at H = 128) use as they launch (registers, spills,
-   shared memory, blocks per SM) and their HMMA instruction counts
-   (cuobjdump), which must not be zero.
+   what the tensor-core kernels (the CE's, the bf16 scan forwards' serving
+   and training launches and the three bf16 stages of each scan backward,
+   at H = 128) use as they launch (registers, spills, shared memory,
+   blocks per SM) and their HMMA instruction counts (cuobjdump), which
+   must not be zero.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (the LSTM and GRU forwards at the serving
    shapes; their training launches and backwards and the fused
    sampled-softmax CE forward and backward at c4's training shape; the CE
    again at the MF training shape; the row scatter, bit for bit, into the
-   MF model's packed item and user tables and at its edge cases), and
-   times kernel, plain version and a library call (a yardstick only); the
-   bf16 scan backwards also by stage (gate pass, sweep, dWh).
+   MF model's packed item and user tables and at its edge cases), checks
+   that the scans repeat bit for bit, and times kernel, plain version and
+   a library call (a yardstick only); the bf16 scan backwards also by
+   stage (gate pass, sweep, dWh).
 3. Serves the c4 sequence model (configs/c4_lstm_attr_xing.json: LSTM,
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
    twin's item vocabulary (1.3M items, deg-12 tags over 4096) with seeded
@@ -287,6 +289,43 @@ def ce_kernel_report(build, tks):
     return counts
 
 
+def scan_fwd_report(build, tk, kernel, H=128):
+    """What the bf16 tensor-core scan forward `kernel` uses as it launches
+    at width H (serving and training launches: registers, spilled bytes,
+    dynamic shared memory, resident blocks per SM), and the HMMA
+    instruction counts of its library: each tensor-core kernel
+    (`*_fwd_mma_*`) must have some. Returns ({launch: launch resources},
+    {kernel function: HMMA count})."""
+    info = tk.fwd_kernel_info(kernel, H)
+    for launch, k in info.items():
+        log(f"{kernel} bf16 {launch} launch at H={H}: {k['registers']} "
+            f"registers, {k['local_bytes']} local bytes, {k['smem_bytes']} B "
+            f"dynamic shared memory, {k['blocks_per_sm']} blocks per SM")
+    counts = hmma_counts(build, kernel)
+    mma = {k: n for k, n in counts.items() if "_fwd_mma_" in k}
+    assert not counts or (mma and all(mma.values())), (
+        f"{kernel}: bf16 kernels without HMMA: {mma}")
+    return info, counts
+
+
+def fwd_times(fn, plain, bounds, plain_iters=10):
+    """The forward kernel `fn()`'s device time per call queued behind a GPU
+    spin (`queued_ms`: back to back, a call of tens of µs times its
+    wrapper's host cost) and back to back, its plain version `plain()`'s,
+    and the bound (`bound` / `bound_resid`)."""
+    return dict(ms=queued_ms([fn]), back_to_back_ms=cuda_ms(fn, 50),
+                plain_ms=cuda_ms(plain, plain_iters),
+                **dict(zip(BOUND_KEYS, bounds)))
+
+
+def assert_repeats(fn, got, kernel):
+    """fn() gives the tensors `got` again, bit for bit (no atomics)."""
+    import torch
+    again = fn()
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+        f"{kernel} does not repeat bit for bit")
+
+
 def scan_bwd_report(build, tk, kernel, H=128):
     """What the bf16 stages of the scan backward `kernel` use as they
     launch at width H (registers, spilled bytes, dynamic shared memory,
@@ -334,7 +373,8 @@ def stage_ms(fn, reps=20):
 
 
 def kernel_phase(dev):
-    """lstm_scan_fwd vs lstm_layer_plain at the serving shapes, and times."""
+    """lstm_scan_fwd vs lstm_layer_plain at the serving shapes (repeating
+    bit for bit), and times."""
     import torch
     from arec_torch.kernels import lstm_scan as tk
 
@@ -344,28 +384,28 @@ def kernel_phase(dev):
         xw, wh, mask, h0, c0 = layer_inputs(L, B, H, dev, seed=B)
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-            got = tk.lstm_layer(xw, wh, mask, h0, c0, dt)
+            fn = lambda: tk.lstm_layer(xw, wh, mask, h0, c0, dt)
+            got = fn()
             torch.cuda.synchronize()
             want = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt)
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, **TOL[name])
+            assert_repeats(fn, got, tk.KERNEL)
             errs[name] = max(errs.get(name, 0.0), err)
-            log(f"kernel vs plain  B={B} L={L} H={H} {name}: max abs err "
-                f"{err:.3e} (tolerance {TOL[name]})")
+            log(f"kernel vs plain  B={B} L={L} H={H} {name} "
+                f"({tk.fwd_route(dt, H)} kernel): max abs err {err:.3e} "
+                f"(tolerance {TOL[name]}), repeats bit for bit")
 
     B = 256
     xw, wh, mask, h0, c0 = layer_inputs(L, B, H, dev, seed=B)
     valid = int(mask.sum())
     times = {}
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        times[name] = dict(
-            ms=cuda_ms(lambda: tk.lstm_layer(xw, wh, mask, h0, c0, dt), 50),
-            plain_ms=cuda_ms(
-                lambda: tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt), 10))
-        bms, by, nbytes, flops = bound(L, B, H, valid, name)
-        times[name].update(bound_ms=bms, bound_by=by, bytes=nbytes,
-                           flops=flops)
+        times[name] = fwd_times(
+            lambda: tk.lstm_layer(xw, wh, mask, h0, c0, dt),
+            lambda: tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt),
+            bound(L, B, H, valid, name))
 
     # yardstick: cuDNN's LSTM on the same [L, B, H] sequence, all-ones mask
     # (no per-step mask exists there) and its own input projection included
@@ -381,11 +421,8 @@ def kernel_phase(dev):
         with torch.inference_mode():
             times[name]["library_ms"] = cuda_ms(lambda: lstm(xs, st), 50)
     for name, t in times.items():
-        log(f"lstm_scan_fwd B={B} L={L} H={H} {name}: kernel {t['ms']:.4f} ms"
-            f", plain {t['plain_ms']:.4f} ms, library (cuDNN nn.LSTM, "
-            f"all-ones mask, with input projection) {t['library_ms']:.4f} ms"
-            f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-            f"{t['bytes']} bytes, {t['flops']} FLOPs)")
+        report("lstm_scan_fwd", f"B={B} L={L} H={H}", name, t,
+               "cuDNN nn.LSTM, all-ones mask, with input projection")
     return errs, times
 
 
@@ -398,8 +435,11 @@ def max_err(got, want):
 
 
 def report(kernel, shape, name, t, library):
-    log(f"{kernel} {shape} {name}: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, library ({library}) "
+    b2b = t.get("back_to_back_ms")
+    log(f"{kernel} {shape} {name}: kernel {t['ms']:.4f} ms"
+        + (f" (device time queued behind a GPU spin; back to back, with "
+           f"its wrapper's host cost, {b2b:.4f} ms)" if b2b else "")
+        + f", plain {t['plain_ms']:.4f} ms, library ({library}) "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} FLOPs)")
 
@@ -426,12 +466,15 @@ def lstm_train_phase(dev):
         xw, wh, mask, h0, c0, dh, dcT = operands(B)
         for name in DTYPES:
             dt = getattr(torch, name)
-            got = tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt, residuals=True)
+            fwd = lambda: tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt,
+                                           residuals=True)
+            got = fwd()
             torch.cuda.synchronize()
             want = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt,
                                        residuals=True)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, **TOL[name])
+            assert_repeats(fwd, got, tk.KERNEL)
             e_f = max_err(got, want)
             hp, cp = want[2:]
             got = tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dt)
@@ -448,8 +491,8 @@ def lstm_train_phase(dev):
             log(f"kernel vs plain  B={B} L={L} H={H} {name}: training "
                 f"forward (h_all, cT, hp, cp) max abs err {e_f:.3e} "
                 f"(tolerance {TOL[name]}); lstm_scan_bwd (dxw, dWh, dh0, "
-                f"dc0) max abs err {e_b:.3e} (tolerance {BWD_TOL[name]}), "
-                f"repeats bit for bit")
+                f"dc0) max abs err {e_b:.3e} (tolerance {BWD_TOL[name]}); "
+                f"both repeat bit for bit")
 
     B = 128
     xw, wh, mask, h0, c0, dh, dcT = operands(B)
@@ -459,12 +502,12 @@ def lstm_train_phase(dev):
         dt = getattr(torch, name)
         hp, cp = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt,
                                      residuals=True)[2:]
-        times["fwd"][name] = dict(
-            ms=cuda_ms(lambda: tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt,
-                                                residuals=True), 50),
-            plain_ms=cuda_ms(lambda: tk.lstm_layer_plain(
-                xw, wh, mask, h0, c0, dt, residuals=True), 10),
-            **dict(zip(BOUND_KEYS, bound_resid(L, B, H, valid, name))))
+        times["fwd"][name] = fwd_times(
+            lambda: tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt,
+                                     residuals=True),
+            lambda: tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt,
+                                        residuals=True),
+            bound_resid(L, B, H, valid, name))
         bwd_k = lambda: tk.lstm_layer_bwd(xw, wh, mask, hp, cp, dh, dcT, dt)
         times["bwd"][name] = dict(
             ms=queued_ms([bwd_k]), back_to_back_ms=cuda_ms(bwd_k, 50),
@@ -498,9 +541,6 @@ def lstm_train_phase(dev):
         report("lstm_scan_bwd", shape, name, times["bwd"][name],
                "cuDNN nn.LSTM forward+backward less its forward, all-ones "
                "mask")
-        log(f"  (lstm_scan_bwd: device time per call, queued behind a GPU "
-            f"spin; back to back, with its wrapper's host cost: "
-            f"{times['bwd'][name]['back_to_back_ms']:.4f} ms)")
     log(f"lstm_scan_bwd bf16 {shape} by stage (device ms per call, "
         f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     times["bwd_stages_ms"] = stages
@@ -679,6 +719,7 @@ def gru_kernel_phase(dev):
     import numpy as np
     import torch
     from arec_torch.kernels import gru_scan as tg
+    from arec_torch.kernels.lstm_scan import fwd_route
 
     L, H = 50, 128
     errs = {"fwd": {}, "train_fwd": {}, "bwd": {}}
@@ -690,14 +731,17 @@ def gru_kernel_phase(dev):
         xw, wh, mask, h0 = layer_inputs(L, B, H, dev, seed=B, cell="gru")
         for name in DTYPES:
             dt = getattr(torch, name)
-            got = tg.gru_layer(xw, wh, mask, h0, dt)
+            fwd = lambda: tg.gru_layer(xw, wh, mask, h0, dt)
+            got = fwd()
             torch.cuda.synchronize()
             want = tg.gru_layer_plain(xw, wh, mask, h0, dt)
             torch.testing.assert_close(got, want, **TOL[name])
+            assert_repeats(lambda: [fwd()], [got], tg.KERNEL)
             note("fwd", name, max_err([got], [want]))
             log(f"kernel vs plain  B={B} L={L} H={H} {name}: gru_scan_fwd "
-                f"max abs err {max_err([got], [want]):.3e} (tolerance "
-                f"{TOL[name]})")
+                f"({fwd_route(dt, H)} kernel) max abs err "
+                f"{max_err([got], [want]):.3e} (tolerance {TOL[name]}), "
+                f"repeats bit for bit")
 
     def operands(B):
         rng = np.random.default_rng(B + 7)
@@ -709,11 +753,14 @@ def gru_kernel_phase(dev):
         xw, wh, mask, h0, dh = operands(B)
         for name in DTYPES:
             dt = getattr(torch, name)
-            got = tg.gru_scan_fwd(xw, wh, mask, h0, dt, residuals=True)
+            fwd = lambda: tg.gru_scan_fwd(xw, wh, mask, h0, dt,
+                                          residuals=True)
+            got = fwd()
             torch.cuda.synchronize()
             want = tg.gru_layer_plain(xw, wh, mask, h0, dt, residuals=True)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, **TOL[name])
+            assert_repeats(fwd, got, tg.KERNEL)
             e_f = max_err(got, want)
             hp = want[1]
             got = tg.gru_layer_bwd(xw, wh, mask, hp, dh, dt)
@@ -730,32 +777,30 @@ def gru_kernel_phase(dev):
             log(f"kernel vs plain  B={B} L={L} H={H} {name}: GRU training "
                 f"forward (h_all, hp) max abs err {e_f:.3e} (tolerance "
                 f"{TOL[name]}); gru_scan_bwd (dxw, dWh, dh0) max abs err "
-                f"{e_b:.3e} (tolerance {BWD_TOL[name]}), repeats bit for "
-                f"bit")
+                f"{e_b:.3e} (tolerance {BWD_TOL[name]}); both repeat bit "
+                f"for bit")
 
     times = {"fwd": {}, "train_fwd": {}, "bwd": {}}
     xw, wh, mask, h0 = layer_inputs(L, 256, H, dev, seed=256, cell="gru")
     valid = int(mask.sum())
     for name in DTYPES:
         dt = getattr(torch, name)
-        times["fwd"][name] = dict(
-            ms=cuda_ms(lambda: tg.gru_layer(xw, wh, mask, h0, dt), 50),
-            plain_ms=cuda_ms(
-                lambda: tg.gru_layer_plain(xw, wh, mask, h0, dt), 10),
-            **dict(zip(BOUND_KEYS, bound(L, 256, H, valid, name, "gru"))))
+        times["fwd"][name] = fwd_times(
+            lambda: tg.gru_layer(xw, wh, mask, h0, dt),
+            lambda: tg.gru_layer_plain(xw, wh, mask, h0, dt),
+            bound(L, 256, H, valid, name, "gru"))
     B = 128
     txw, twh, tmask, th0, dh = operands(B)
     tvalid = int(tmask.sum())
     for name in DTYPES:
         dt = getattr(torch, name)
         hp = tg.gru_layer_plain(txw, twh, tmask, th0, dt, residuals=True)[1]
-        times["train_fwd"][name] = dict(
-            ms=cuda_ms(lambda: tg.gru_scan_fwd(txw, twh, tmask, th0, dt,
-                                               residuals=True), 50),
-            plain_ms=cuda_ms(lambda: tg.gru_layer_plain(
-                txw, twh, tmask, th0, dt, residuals=True), 10),
-            **dict(zip(BOUND_KEYS, bound_resid(L, B, H, tvalid, name,
-                                               "gru"))))
+        times["train_fwd"][name] = fwd_times(
+            lambda: tg.gru_scan_fwd(txw, twh, tmask, th0, dt,
+                                    residuals=True),
+            lambda: tg.gru_layer_plain(txw, twh, tmask, th0, dt,
+                                       residuals=True),
+            bound_resid(L, B, H, tvalid, name, "gru"))
         bwd_k = lambda: tg.gru_layer_bwd(txw, twh, tmask, hp, dh, dt)
         times["bwd"][name] = dict(
             ms=queued_ms([bwd_k]), back_to_back_ms=cuda_ms(bwd_k, 50),
@@ -793,9 +838,6 @@ def gru_kernel_phase(dev):
                GRU_LIBRARY + ", training forward")
         report("gru_scan_bwd", f"B={B} L={L} H={H}", name, times["bwd"][name],
                GRU_LIBRARY + ", forward+backward less its forward")
-        log(f"  (gru_scan_bwd: device time per call, queued behind a GPU "
-            f"spin; back to back, with its wrapper's host cost: "
-            f"{times['bwd'][name]['back_to_back_ms']:.4f} ms)")
     log(f"gru_scan_bwd bf16 B={B} L={L} H={H} by stage (device ms per call, "
         f"profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     times["bwd_stages_ms"] = stages
@@ -1680,6 +1722,8 @@ def main() -> int:
                        text.splitlines() if "Used" in ln})
         log(f"{name} ptxas: {regs}")
     hmma = ce_kernel_report(_build, tks)
+    fwd_reports = {k: scan_fwd_report(_build, tk, k)
+                   for k in (tk.KERNEL, tg.KERNEL)}
     bwd_reports = {k: scan_bwd_report(_build, tk, k)
                    for k in (tk.KERNEL_BWD, tg.KERNEL_BWD)}
 
@@ -1718,11 +1762,20 @@ def main() -> int:
 
     def fwd_row(name, source, replaces, fn, cell, err, t, train_err,
                 train_t, library, train_library, residuals):
+        # bf16: the tensor-core kernel's serving and training launches, their
+        # launch resources at H = 128 and its library's HMMA counts; f32:
+        # the CUDA-core kernel
         out = row(name, source, replaces, fn,
                   served[cell] + trained[cell][name], err, t,
                   "L=50 B=256 H=128", library)
+        info, counts = fwd_reports[name]
         out.update(launches_serving=served[cell],
                    launches_training=trained[cell][name],
+                   back_to_back_ms=t["bfloat16"]["back_to_back_ms"],
+                   resources=info, hmma={k: n for k, n in counts.items() if n},
+                   timing="device time per call, launches queued behind a "
+                          "GPU spin (CUDA events); back_to_back_ms: 50 "
+                          "launches as the host issues them",
                    training_launch={
                        "shape": f"L=50 B=128 H=128, with {residuals} "
                                 f"residuals",
@@ -1730,8 +1783,10 @@ def main() -> int:
                        "max_err_bf16": train_err["bfloat16"],
                        "library": train_library,
                        **{dt: {k: train_t[dt][k] for k in
-                               ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")} for dt in DTYPES}})
+                               ("ms", "back_to_back_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+                          for dt in DTYPES}})
+        out["f32"]["back_to_back_ms"] = t["float32"]["back_to_back_ms"]
         return out
 
     def ce_row(name, line, fn, kind, library):

@@ -14,7 +14,8 @@ import torch
 from arec.kernels.gru_scan import _forward, gru_layer_pallas, pallas_gru_scan
 from arec.models.seq import rnn_scan as jax_rnn_scan
 from arec_torch.kernels import gru_scan as tg
-from test_torch_lstm_scan import CASES, D, _layers, _mask, _to_j, _to_t
+from test_torch_lstm_scan import (CASES, D, EDGES, _layers, _mask,
+                                  _pad_tile_inputs, _to_j, _to_t)
 
 torch.set_num_threads(1)
 
@@ -100,6 +101,24 @@ def test_gru_layer_plain_matches_pallas_layer(B):
     # the all-pad row keeps its carried-in state exactly
     np.testing.assert_array_equal(got_h.numpy()[:, 0], np.repeat(
         h0[None, 0], L, axis=0))
+
+
+@pytest.mark.parametrize("B,H,pad_tile", EDGES)
+def test_gru_layer_plain_matches_pallas_layer_at_kernel_edges(B, H,
+                                                              pad_tile):
+    """At the tensor-core forward's edges (those of the LSTM's), with a
+    nonzero h0: h_all and the residual hp against the Pallas forward's."""
+    L = 10
+    xw, wh, mask, h0, _ = _pad_tile_inputs(B, H, 3, pad_tile, L)
+    want = _forward(*map(jnp.asarray, (xw, wh, mask, h0)), dtype=jnp.float32)
+    got = tg.gru_layer_plain(*map(torch.from_numpy, (xw, wh, mask, h0)),
+                             torch.float32, residuals=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    if pad_tile:   # the all-pad tile keeps its carried-in state exactly
+        np.testing.assert_array_equal(got[0].numpy()[:, 8:16], np.repeat(
+            h0[None, 8:16], L, axis=0))
 
 
 def test_gru_layer_on_cpu_takes_plain_version_without_launching():

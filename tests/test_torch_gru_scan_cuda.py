@@ -12,15 +12,18 @@ sides round h and r⊙h to bf16 at the same points but sum in different
 orders, so a value on a rounding boundary can land one bf16 ulp apart and
 carry that through later steps); the backward at tests/test_seq.py's
 gradient tolerance in f32 (rtol 2e-3, atol 2e-4) and 2e-2 / 2e-2 in bf16
-(the gate derivatives are rounded to bf16 before the products). The
-backward's cases are the LSTM card tests' (c4's shape, ragged B, B = 1024
-at H = 64, B = 129, Wh read from global at H = 192, small widths)."""
+(the gate derivatives are rounded to bf16 before the products). The bf16
+forward's and the backward's cases are the LSTM card tests' (forward: B =
+256, 200, 128, 100, 13 at H = 128, 64, 48, 16 and 24; backward: c4's
+shape, ragged B, B = 1024 at H = 64, B = 129, Wh read from global at
+H = 192, small widths)."""
 
 import numpy as np
 import pytest
 import torch
 
 from arec_torch.kernels import gru_scan as tg
+from arec_torch.kernels import lstm_scan as tk
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -69,6 +72,44 @@ def test_kernel_matches_plain(dev, dtype, L, B, H):
     # all-pad rows keep their carried-in state exactly
     pad = mask.sum(dim=1) == 0
     assert torch.equal(got[:, pad], h0[pad].expand(L, -1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("B", [256, 200, 128, 100, 13])
+@pytest.mark.parametrize("H", [128, 64, 48, 16, 24])
+def test_bf16_forward_matches_plain(dev, residuals, B, H):
+    """The bf16 serving (residuals=False) and training launches against the
+    plain version: the tensor-core kernel at H = 128, 64 (Whᵀ in registers)
+    and 48, 16 (the general kernel), the CUDA-core kernel at H = 24. Each
+    repeats bit for bit, and its residual is the state before each step:
+    h0, then the previous step's."""
+    L, dt = 50, torch.bfloat16
+    xw, wh, mask, h0, _ = _inputs(L, B, H, dev, seed=B + H)
+    assert tk.fwd_route(dt, H) == ("mma" if H % 16 == 0 else "cuda_core")
+    fwd = lambda: tg.gru_scan_fwd(xw, wh, mask, h0, dt, residuals=residuals)
+    before = tg.gru_layer.launches
+    got = fwd()
+    torch.cuda.synchronize()
+    assert tg.gru_layer.launches == before + 1
+    want = tg.gru_layer_plain(xw, wh, mask, h0, dt, residuals=residuals)
+    want = want if residuals else (want,)
+    for name, g, w in zip(("h_all", "hp"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **TOL[dt])
+    for g, a in zip(got, fwd()):
+        assert torch.equal(g, a)
+    if residuals:
+        h_all, hp = got
+        assert torch.equal(hp[0], h0) and torch.equal(hp[1:], h_all[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 64])
+def test_bf16_forward_keeps_its_registers(dev, H):
+    """At the configs' widths the tensor-core forward holds Whᵀ and the
+    carry in registers: no spilled (local) bytes in either launch."""
+    for launch, k in tk.fwd_kernel_info(tg.KERNEL, H).items():
+        assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, (launch, k)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from arec.kernels.lstm_scan import lstm_layer_pallas, pallas_lstm_scan
+from arec.kernels.lstm_scan import (_forward, lstm_layer_pallas,
+                                    pallas_lstm_scan)
 from arec.models.seq import rnn_scan as jax_rnn_scan
 from arec_torch.kernels import lstm_scan as tk
 from arec_torch.models import seq as tseq
@@ -137,6 +138,63 @@ def test_lstm_layer_plain_matches_pallas_layer(B):
     np.testing.assert_array_equal(got_h.numpy()[:, 0], np.repeat(
         h0[None, 0], L, axis=0))
     np.testing.assert_array_equal(got_c.numpy()[0], c0[0])
+
+
+# the bf16 tensor-core forward's edges: a batch off its 8-row tiles
+# (B = 13), an all-pad tile of 8 rows (rows 8-15; at B = 21 a ragged tile
+# follows), the general kernel's widths (16, 48) and a width off the MMA's
+# depth (24: the CUDA-core kernel)
+EDGES = [(13, 16, False), (16, 48, True), (21, 48, True), (13, 24, False)]
+
+
+def _pad_tile_inputs(B, H, gates, pad_tile, L=10):
+    """xw, wh, a left-padded mask (rows 8-15 all padding when pad_tile) and
+    nonzero carried-in states (h0, c0)."""
+    rng = np.random.default_rng(B + H)
+    xw = rng.standard_normal((L, B, gates * H)).astype(np.float32)
+    wh = (rng.standard_normal((H, gates * H)) / np.sqrt(H)).astype(np.float32)
+    mask = _mask(rng, B, L)
+    if pad_tile:
+        mask[8:16] = 0.0
+    h0, c0 = (rng.standard_normal((B, H)).astype(np.float32) for _ in "hc")
+    return xw, wh, mask, h0, c0
+
+
+@pytest.mark.parametrize("B,H,pad_tile", EDGES)
+def test_lstm_layer_plain_matches_pallas_layer_at_kernel_edges(B, H,
+                                                               pad_tile):
+    """At the tensor-core forward's edges, with nonzero carries: h_all, cT
+    and the residuals hp, cp against the Pallas forward's."""
+    L = 10
+    xw, wh, mask, h0, c0 = _pad_tile_inputs(B, H, 4, pad_tile, L)
+    h_all, c_all, hp, cp = _forward(*map(jnp.asarray, (xw, wh, mask, h0, c0)),
+                                    dtype=jnp.float32)
+    got = tk.lstm_layer_plain(*map(torch.from_numpy, (xw, wh, mask, h0, c0)),
+                              torch.float32, residuals=True)
+    for g, w in zip(got, (h_all, c_all[-1], hp, cp)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    if pad_tile:   # the all-pad tile keeps its carried-in state exactly
+        np.testing.assert_array_equal(got[0].numpy()[:, 8:16], np.repeat(
+            h0[None, 8:16], L, axis=0))
+        np.testing.assert_array_equal(got[1].numpy()[8:16], c0[8:16])
+
+
+@pytest.mark.parametrize("dtype,H,route", [
+    (torch.bfloat16, 128, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 48, "mma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 24, "cuda_core"), (torch.bfloat16, 8, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 24, "cuda_core")])
+def test_forward_route_by_dtype_and_width(dtype, H, route):
+    """The forward's kernel by dtype and width: the tensor-core kernel for
+    bf16 at a multiple of 16 (the MMA's depth), else the CUDA-core kernel;
+    the weight handed to it follows (Whᵀ for the tensor cores, Wh else),
+    cast, contiguous."""
+    assert tk.fwd_route(dtype, H) == route
+    wh = torch.randn(H, 4 * H)
+    got, _, w, shape = tk._fwd_weight(wh, dtype, H, 4 * H)
+    assert got == route and tuple(w.shape) == shape and w.is_contiguous()
+    assert torch.equal(w, (wh.t() if route == "mma" else wh).to(dtype))
 
 
 def test_lstm_layer_on_cpu_takes_plain_version_without_launching():

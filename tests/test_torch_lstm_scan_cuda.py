@@ -10,14 +10,18 @@ f32 is held to rtol 1e-4 / atol 1e-5. bf16 is held to atol 1e-2 / rtol
 1e-2: both sides round h to bf16 at the same points, but their f32 sums
 run in different orders, so an h that sits on a bf16 rounding boundary can
 land one bf16 ulp (2^-8 relative) apart and carry that through later
-steps. The backward is held to tests/test_seq.py's gradient tolerance in
-f32 (rtol 2e-3, atol 2e-4) and to atol 2e-2 / rtol 2e-2 in bf16 (the
-gate derivatives are rounded to bf16 before both products, where an
-ulp-apart pair shifts a term by 2^-8 of its size). The backward's cases
-cross the bf16 kernels' edges: c4's shape and a ragged B, the widest
-config batch at the syn configs' width (B = 1024, H = 64: a 128-CTA
-sweep), one row past a tile (B = 129), Wh too large for shared memory
-(H = 192: read from global), and small widths."""
+steps. The bf16 forward's cases cross the tensor-core kernel's edges:
+both launches at the serving and training batches and ragged ones (B =
+256, 200, 128, 100, 13: tiles of 8 rows), at the register-resident widths
+(H = 128, 64), the general kernel's (48, 16) and one off the mma's depth
+(24, the CUDA-core kernel). The backward is held to tests/test_seq.py's
+gradient tolerance in f32 (rtol 2e-3, atol 2e-4) and to atol 2e-2 / rtol
+2e-2 in bf16 (the gate derivatives are rounded to bf16 before both
+products, where an ulp-apart pair shifts a term by 2^-8 of its size). The
+backward's cases cross the bf16 kernels' edges: c4's shape and a ragged B,
+the widest config batch at the syn configs' width (B = 1024, H = 64: a
+128-CTA sweep), one row past a tile (B = 129), Wh too large for shared
+memory (H = 192: read from global), and small widths."""
 
 import numpy as np
 import pytest
@@ -69,6 +73,45 @@ def test_kernel_matches_plain(dev, dtype, L, B, H):
     pad = mask.sum(dim=1) == 0
     assert torch.equal(got_h[:, pad], h0[pad].expand(L, -1, -1))
     assert torch.equal(got_c[pad], c0[pad])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("B", [256, 200, 128, 100, 13])
+@pytest.mark.parametrize("H", [128, 64, 48, 16, 24])
+def test_bf16_forward_matches_plain(dev, residuals, B, H):
+    """The bf16 serving (residuals=False) and training launches against the
+    plain version: the tensor-core kernel at H = 128, 64 (Whᵀ in registers)
+    and 48, 16 (the general kernel), the CUDA-core kernel at H = 24. Each
+    repeats bit for bit, and its residuals are the states before each step:
+    (h0, c0), then the previous step's."""
+    L, dt = 50, torch.bfloat16
+    xw, wh, mask, h0, c0 = _inputs(L, B, H, dev, seed=B + H)
+    assert tk.fwd_route(dt, H) == ("mma" if H % 16 == 0 else "cuda_core")
+    fwd = lambda: tk.lstm_scan_fwd(xw, wh, mask, h0, c0, dt,
+                                   residuals=residuals)
+    before = tk.lstm_layer.launches
+    got = fwd()
+    torch.cuda.synchronize()
+    assert tk.lstm_layer.launches == before + 1
+    want = tk.lstm_layer_plain(xw, wh, mask, h0, c0, dt, residuals=residuals)
+    for name, g, w in zip(("h_all", "cT", "hp", "cp"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **TOL[dt])
+    for g, a in zip(got, fwd()):
+        assert torch.equal(g, a)
+    if residuals:
+        h_all, _, hp, cp = got
+        assert torch.equal(hp[0], h0) and torch.equal(hp[1:], h_all[:-1])
+        assert torch.equal(cp[0], c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 64])
+def test_bf16_forward_keeps_its_registers(dev, H):
+    """At the configs' widths the tensor-core forward holds Whᵀ and the
+    carries in registers: no spilled (local) bytes in either launch."""
+    for launch, k in tk.fwd_kernel_info(tk.KERNEL, H).items():
+        assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, (launch, k)
 
 
 @pytest.mark.cuda
