@@ -19,6 +19,8 @@ crossover) is not inherited: the caller chooses.
 The plain version `scatter_rows_set_plain` masks the ids and uses
 `index_copy_`; its boolean mask costs a host sync on CUDA, which the kernel
 does not (each row's warp reads its own id and drops it there).
+`launch_plan` reports what the kernel would launch (grid, registers,
+resident blocks, vector width) without launching it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,34 @@ def _fn():
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _plan_fn():
+    fn = _build.load(KERNEL).row_scatter_plan
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+PLAN_KEYS = ("grid", "threads", "sms", "blocks_per_sm", "registers",
+             "local_bytes", "vector_bytes")
+
+
+def launch_plan(table: torch.Tensor, rows: torch.Tensor) -> dict:
+    """What `row_scatter(table, ids, rows)` launches on this card for
+    N = rows.shape[0] ids (no launch): grid and threads a block (one warp a
+    row), the card's SMs and the kernel's resident blocks an SM, its
+    registers and local bytes a thread, and its vector width (16: 16-byte
+    vectors with each row's phase handled; 4: floats)."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(table.device):
+        rc = _plan_fn()(table.data_ptr(), rows.data_ptr(), table.shape[1],
+                        rows.shape[0], out)
+    if rc != 0:
+        raise RuntimeError(f"row_scatter_plan failed: CUDA error {rc}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 @torch.no_grad()

@@ -16,7 +16,9 @@
    shapes; their training launches and backwards and the fused
    sampled-softmax CE forward and backward at c4's training shape; the CE
    again at the MF training shape; the row scatter, bit for bit, into the
-   MF model's packed item and user tables and at its edge cases), checks
+   MF model's packed item and user tables, at its edge cases and at each
+   (source, destination) phase pair of its 16-byte path, with its launch
+   plan: grid, registers, resident blocks, vector width), checks
    that the scans repeat bit for bit, and times kernel, plain version and
    a library call (a yardstick only); the bf16 scan backwards also by
    stage (gate pass, sweep, dWh).
@@ -887,6 +889,10 @@ def device_breakdown(what, fn):
     if ce_ms:
         log(f"  sampled CE kernels (sampled_ce.cu): {ce_ms:.3f} ms, "
             f"{ce_ms / busy_ms:.3f} of device busy")
+    rs_ms = sum(us for key, us in dev_us.items() if "::scatter<" in key) / 1e3
+    if rs_ms:
+        log(f"  row_scatter kernels (row_scatter.cu): {rs_ms:.4f} ms, "
+            f"{rs_ms / busy_ms:.4f} of device busy")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
@@ -1226,6 +1232,44 @@ def bound_scatter(ids, rows, V):
                     "float32") + (n_valid,)
 
 
+def phase_case(V, W, N, table_base, src_phase, dst_phase, dev, seed):
+    """A write-back whose in-range ids all take one (source phase,
+    destination phase) pair of the kernel's 16-byte path: the table [V, W]
+    and the rows [N, W] start `table_base` mod 16 (a view one row into a
+    larger tensor for 8), only the rows whose base is `src_phase` mod 16
+    carry in-range ids, each to a distinct table row whose base is
+    `dst_phase` mod 16; every other id is a sentinel (V, or -1 at every
+    fourth row). Returns (the tensor under the table, table, ids, rows)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    off = 1 if table_base % 16 == 8 else 0
+    big = torch.randn(V + off, W, generator=gen, device=dev)
+    rows = torch.randn(N + off, W, generator=gen, device=dev)[off:]
+    table = big[off:]
+    assert table.data_ptr() % 16 == table_base % 16
+    src = (rows.data_ptr() + np.arange(N) * W * 4) % 16 == src_phase
+    dst = np.flatnonzero((table.data_ptr() + np.arange(V) * W * 4) % 16
+                         == dst_phase)
+    ids = np.where(np.arange(N) % 4 == 1, -1, V)
+    ids[src] = rng.choice(dst, size=int(src.sum()), replace=False)
+    return big, table, torch.from_numpy(ids.astype(np.int32)).to(dev), rows
+
+
+def phase_counts(table, ids, rows):
+    """{"src/dst": in-range rows} by the byte phases mod 16 of their source
+    and destination rows, as the kernel's 16-byte path meets them."""
+    import torch
+    V, W = table.shape
+    ok = (ids >= 0) & (ids < V)
+    r = torch.arange(ids.shape[0], device=ids.device)[ok]
+    sp = (rows.data_ptr() + r * W * 4) % 16
+    dp = (table.data_ptr() + ids[ok].long() * W * 4) % 16
+    return {f"{a}/{b}": int(((sp == a) & (dp == b)).sum())
+            for a in (0, 8) for b in (0, 8)}
+
+
 def queued_ms(calls, reps: int = 48) -> float:
     """Mean device time of `calls`, cycled `reps` times and queued behind
     a spin of the GPU, so that the CUDA events time the launches back to
@@ -1285,8 +1329,11 @@ def row_scatter_phase(dev, shapes=MF_SHAPES):
     """row_scatter against its plain version, bit for bit, at the MF main
     path's two write-back shapes (1/16 of the ids sentinel) and at the edge
     cases: an odd width, a base aligned to 8 bytes only, no ids, only
-    sentinel ids; in place, untouched rows unchanged. Then its times at
-    the main-path shapes."""
+    sentinel ids, and each (source phase, destination phase) pair of a
+    258-wide row on a 16- and an 8-byte aligned table base; in place,
+    untouched rows unchanged. Prints the launch (grid, registers, resident
+    blocks, vector width) and the phase pairs of the main-path shapes,
+    then their times. Returns ({shape: times}, {shape: launch plan})."""
     import torch
     from arec_torch.kernels import row_scatter as trs
 
@@ -1295,9 +1342,14 @@ def row_scatter_phase(dev, shapes=MF_SHAPES):
     cases.update(odd_width=(20_000, 129, 3_000, 2_900),
                  all_sentinel=(20_000, 258, 64, 0), empty=(20_000, 258, 0, 0),
                  narrow=(1_000, 3, 300, 250))
-    times = {}
+    times, plans = {}, {}
     for name, (V, W, N, n_valid) in cases.items():
         table, ids, rows = scatter_case(V, W, N, n_valid, dev, seed=W + N)
+        if name in shapes:
+            plans[name] = dict(trs.launch_plan(table, rows),
+                               phase_pairs=phase_counts(table, ids, rows))
+            log(f"row_scatter launch for the {name} table [{V}, {W}], {N} "
+                f"ids: {plans[name]}")
         want = trs.scatter_rows_set_plain(table.clone(), ids, rows)
         orig = table.clone()
         ptr = table.data_ptr()
@@ -1329,6 +1381,30 @@ def row_scatter_phase(dev, shapes=MF_SHAPES):
     assert torch.equal(view, want) and torch.equal(big[0], row0)
     log("row_scatter vs plain  a base aligned to 8 bytes only: equal bit "
         "for bit")
+    for base in (16, 8):
+        for sp in (0, 8):
+            for dp in (0, 8):
+                big, table, ids, rows = phase_case(20_000, 258, 2_000, base,
+                                                   sp, dp, dev,
+                                                   seed=base + 2 * sp + dp)
+                pairs = phase_counts(table, ids, rows)
+                assert pairs[f"{sp}/{dp}"] == sum(pairs.values()) > 0, pairs
+                orig = big.clone()
+                want = trs.scatter_rows_set_plain(table.clone(), ids, rows)
+                trs.row_scatter(table, ids, rows)
+                torch.cuda.synchronize()
+                assert torch.equal(table, want), (base, sp, dp)
+                touched = torch.zeros(big.shape[0], dtype=torch.bool,
+                                      device=dev)
+                ok = (ids >= 0) & (ids < table.shape[0])
+                off = big.shape[0] - table.shape[0]
+                touched[ids[ok].long() + off] = True
+                assert torch.equal(big[~touched], orig[~touched])
+                log(f"row_scatter vs plain  table base {base} mod 16, "
+                    f"source/destination phases {sp}/{dp} "
+                    f"({pairs[f'{sp}/{dp}']} rows): equal bit for bit, "
+                    f"untouched rows unchanged")
+                del big, table, orig, want
     for name, t in times.items():
         log(f"row_scatter {name} table, {t['n']} ids ({t['n_valid']} in "
             f"range) of {t['width']} f32, device time per call: kernel "
@@ -1337,7 +1413,7 @@ def row_scatter_phase(dev, shapes=MF_SHAPES):
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
             f"bytes); kernel back to back (host launch cost included) "
             f"{t['back_to_back_ms']:.4f} ms")
-    return times
+    return times, plans
 
 
 def load_mf(sets=MF_SETS, cuts=MF_CUTS):
@@ -1731,7 +1807,7 @@ def main() -> int:
     lstm_errs, lstm_times = lstm_train_phase(dev)
     ce_errs, ce_times = ce_phase(dev)
     gru_errs, gru_times = gru_kernel_phase(dev)
-    scatter_times = row_scatter_phase(dev)
+    scatter_times, scatter_plans = row_scatter_phase(dev)
     free()
     served, trained = {}, {}
     for cell in ("lstm", "gru"):
@@ -1835,6 +1911,7 @@ def main() -> int:
                 "shape": f"table [{MF_SHAPES['item'][0]}, "
                          f"{MF_SHAPES['item'][1]}], {t['n']} ids",
                 "user_table": {k: scatter_times["user"][k] for k in keys},
+                "launch_plan": scatter_plans,
                 "main_path_writeback": {
                     tab: {k: w[k] for k in keys}
                     for tab, w in writeback.items()}}

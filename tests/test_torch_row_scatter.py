@@ -52,6 +52,50 @@ def test_plain_matches_xla_scatter_bit_for_bit(W, kind):
         np.testing.assert_array_equal(got.numpy(), table)
 
 
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5])
+def test_plain_matches_xla_scatter_at_narrow_widths(W):
+    """The widths the kernel's vector paths treat apart: odd (4-byte
+    path), 2 (head or tail only), 4 (one vector or head and tail)."""
+    table, ids, rows = _case(700, W, 250, 200, seed=100 + W)
+    t = torch.from_numpy(table.copy())
+    got = trs.scatter_rows_set_plain(t, torch.from_numpy(ids),
+                                     torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), _xla(table, ids, rows))
+
+
+def _serial(table, ids, rows):
+    """The serial copy: for i in order, table[ids[i]] = rows[i] where
+    0 <= ids[i] < V."""
+    out = table.copy()
+    for i, r in zip(ids, rows):
+        if 0 <= i < out.shape[0]:
+            out[i] = r
+    return out
+
+
+@pytest.mark.parametrize("W", [3, 258])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_matches_serial_copy_with_interleaved_sentinels(W, seed):
+    """Unsorted in-range ids with sentinels >= V and negative ids between
+    them (XLA's indices_are_sorted promise does not hold, so the oracle is
+    a numpy loop)."""
+    rng = np.random.default_rng(seed)
+    V, N = 400, 300
+    ids = np.where(rng.random(N) < 0.5, V + rng.integers(0, 3, N),
+                   -1 - rng.integers(0, 3, N))
+    valid = rng.random(N) < 0.6
+    ids[valid] = rng.choice(V, size=int(valid.sum()), replace=False)
+    ids = ids.astype(np.int32)
+    assert (ids < 0).any() and (ids >= V).any()
+    table = rng.standard_normal((V, W)).astype(np.float32)
+    rows = rng.standard_normal((N, W)).astype(np.float32)
+    t = torch.from_numpy(table.copy())
+    got = trs.scatter_rows_set(t, torch.from_numpy(ids),
+                               torch.from_numpy(rows), use_kernel=True)
+    assert got is t
+    np.testing.assert_array_equal(got.numpy(), _serial(table, ids, rows))
+
+
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
     table, ids, rows = _case(500, 258, 120, 100, seed=1)
     want = _xla(table, ids, rows)
