@@ -211,11 +211,11 @@ class TrainConfig:
                                 # (round 4).
     sparse_update: bool = False # touched-rows-only table updates (big-vocab
                                 # fast path; single-device, adagrad/sgd)
-    compact_table_grads: bool = False  # sort+unique request ids per lookup
-                                # so table-grad scatters see collision-free
-                                # sorted indices (engine.make_compact_lookup)
-                                # — single-device dense path; A/B'd per
-                                # shape in BASELINE.md
+    compact_table_grads: bool = False  # arec: sort+unique request ids per
+                                # lookup so table-grad scatters see
+                                # collision-free sorted indices; here
+                                # engine.dense_lookup, whose embedding
+                                # backward already does that
     tensorboard: bool = False   # also stream step metrics to a TensorBoard
                                 # event file under train_dir/tb (torch
                                 # SummaryWriter; JSONL stays the primary log)

@@ -19,12 +19,13 @@ import torch
 
 
 def init_fusion(gen: torch.Generator, n_attrs: int, dim: int,
-                nonlinear: bool) -> dict:
+                nonlinear: bool, device=None) -> dict:
     """Same shapes and scales as arec's init; the draws come from `gen` and
-    land on `gen.device` (torch and jax give different numbers from one
-    seed, so parity runs hand arec's weights over through the bridge)."""
+    land on `device` (default `gen.device`; `meta` gives the shapes alone).
+    torch and jax give different numbers from one seed, so parity runs hand
+    arec's weights over through the bridge."""
     d_in = n_attrs * dim
-    dev = gen.device
+    dev = gen.device if device is None else device
     if nonlinear:
         return {
             "w1": torch.randn(d_in, dim, generator=gen, device=dev)

@@ -77,11 +77,11 @@ class MFSpec:
             self.act_dtype]
 
 
-def init_mf(gen: torch.Generator, spec: MFSpec) -> dict:
-    """arec's MF layout, shapes and scales, drawn from `gen` on
-    `gen.device`."""
-    return {"user": init_encoder(gen, spec.user),
-            "item": init_encoder(gen, spec.item)}
+def init_mf(gen: torch.Generator, spec: MFSpec, device=None) -> dict:
+    """arec's MF layout, shapes and scales, drawn from `gen` on `device`
+    (default `gen.device`; `meta` gives the shapes alone)."""
+    return {"user": init_encoder(gen, spec.user, device),
+            "item": init_encoder(gen, spec.item, device)}
 
 
 def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,

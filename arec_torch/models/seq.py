@@ -120,16 +120,16 @@ def _gate_count(cell: str) -> int:
     return {"lstm": 4, "gru": 3}[cell]
 
 
-def init_seq(gen: torch.Generator, spec: SeqSpec) -> dict:
+def init_seq(gen: torch.Generator, spec: SeqSpec, device=None) -> dict:
     """arec's seq param layout, shapes and scales, drawn from `gen` on
-    `gen.device`: {"item_in", ["user"], "rnn": [{"w", "b"}], ["item_out"]}
+    `device` (default `gen.device`; `meta` gives the shapes alone): {"item_in", ["user"], "rnn": [{"w", "b"}], ["item_out"]}
     with `w` the fused [D_in + H, G·H] matrix (gate order i|f|g|o for the
     LSTM, r|u|n for the GRU)."""
     d, g = spec.dim, _gate_count(spec.cell)
-    dev = gen.device
-    params: dict = {"item_in": init_encoder(gen, spec.item_in)}
+    dev = gen.device if device is None else device
+    params: dict = {"item_in": init_encoder(gen, spec.item_in, dev)}
     if spec.user is not None:
-        params["user"] = init_encoder(gen, spec.user)
+        params["user"] = init_encoder(gen, spec.user, dev)
     layers = []
     for _ in range(spec.num_layers):
         d_in = d  # input dim == hidden dim at every layer (single --size)

@@ -3,7 +3,8 @@
 arec packs sequence batches with a C++ packer (`packer.cpp`, loaded with
 ctypes) and keeps these numpy versions as its fallback and test oracle. The
 port exposes the numpy versions under the names `data/dataset.py` calls;
-the C++ packer is host code and waits for the trainer slice (ROADMAP A6).
+the C++ packer is host code and waits for the host input path (ROADMAP
+A6.4).
 """
 
 from __future__ import annotations

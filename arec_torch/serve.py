@@ -1,21 +1,24 @@
-"""Standing serving layer (port of `arec/serve.py`): hold the model's
-weights and the item latent matrix on the device and answer batched top-K
-requests — raw item histories (sequence family, `from_histories`) or user
-ids (MF family, `for_users`).
+"""Standing serving layer (port of `arec/serve.py`): restore a trained
+checkpoint once, hold the weights and the item latent matrix on the
+device, and answer batched top-K requests — raw item histories (sequence
+family, `from_histories`) or user ids (MF family, `for_users`).
 
-The path is arec's: `Recommender.__init__` → item latents (pre-cast to
-the compute dtype) → per batch `_query_fn` → the sequence family's
-`seq_final_state_full` (the carried-state segmented scan, through the CUDA
-LSTM or GRU kernel with `use_pallas_scan`) or MF's `mf_user_latents` →
-seen-masked exact top-k. Requests are padded to a fixed batch of
-`serve_batch`.
+The path is arec's: `Recommender.__init__` restores the latest checkpoint
+under cfg.train.train_dir through a serve-only `Trainer` (its state shaped
+on the `meta` device, so no random tables or optimizer state are built),
+then item latents (pre-cast to the compute dtype) → per batch `_query_fn`
+→ the sequence family's `seq_final_state_full` (the carried-state
+segmented scan, through the CUDA LSTM or GRU kernel with
+`use_pallas_scan`) or MF's `mf_user_latents` → seen-masked exact top-k.
+Requests are padded to a fixed batch of `serve_batch`. `refresh()` follows
+training in place: the newest checkpoint re-restored into the live object,
+the old state freed first, so residency never doubles.
 
-Weights enter as an arec-layout param tree (numpy or torch; see
-`arec_torch.bridge`) — what a checkpoint restore would hand over. An MF
-tree may be the sparse step's packed one (tables [V, 2D]); it is read
-through `unpack_params`, as arec's `Trainer._eval_params` does. Not ported
-yet: checkpoint restore (`refresh`, `main`) and the approximate top-k
-mode.
+Weights may also be handed in as an arec-layout param tree (numpy or
+torch; see `arec_torch.bridge`); such a Recommender follows no checkpoint.
+An MF tree may be the sparse step's packed one (tables [V, 2D]); it is
+read through `unpack_params`, as arec's `Trainer._eval_params` does. The
+approximate top-k mode (serve_recall_target < 1) raises (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -27,34 +30,11 @@ import torch
 
 from arec_torch import bridge, resolve_device
 from arec_torch.config import Config
-from arec_torch.data.io import load_or_prepare
 from arec_torch.models import mf as mf_mod
-from arec_torch.models import seq as seq_mod
-from arec_torch.tables.engine import attrs_to_device
-from arec_torch.train.evalu import topk_with_mask
+from arec_torch.train.loop import (
+    Trainer, _item_latents, _serve_step, build_model,
+)
 from arec_torch.train.sparse import get_path, table_paths, unpack_params
-
-
-def _item_latents(cfg: Config, spec, params, item_dev):
-    """All-item latent matrix + bias; serve_latents_dtype="compute" pre-casts
-    the matrix to the compute dtype once (scores are unchanged: top-k casts
-    its operands anyway)."""
-    if isinstance(spec, mf_mod.MFSpec):
-        v, b = mf_mod.mf_item_latents(params, spec, item_dev)
-    else:
-        v, b = seq_mod.seq_item_latents(params, spec, item_dev)
-    if cfg.train.serve_latents_dtype == "compute":
-        v = v.to(spec.dtype)
-    return v, b
-
-
-def _query_fn(spec, params, item_dev, user_dev, batch):
-    """Serving query encode: MF's user latents, or the final recurrent
-    state after each history."""
-    if isinstance(spec, mf_mod.MFSpec):
-        return mf_mod.mf_user_latents(params, spec, user_dev, batch["user"])
-    return seq_mod.seq_final_state_full(params, spec, item_dev, user_dev,
-                                        batch)
 
 
 def _mf_params(spec, params):
@@ -69,24 +49,6 @@ def _mf_params(spec, params):
         raise ValueError(f"MF tables of width {widths}: neither plain "
                          f"{want} nor packed {[2 * w for w in want]}")
     return params
-
-
-def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int):
-    """Per-batch serving step: queries → seen-masked exact top-k. Like
-    arec's single-device step it passes no compute dtype to the top-k, so
-    the scores take bf16 operands even when the model computes in f32."""
-    target = cfg.train.serve_recall_target
-    mem = cfg.train.serve_score_mem_mb
-    if target < 1.0:
-        raise NotImplementedError(
-            "train.serve_recall_target < 1 (approximate top-k) is not "
-            "ported; serve with 1.0")
-
-    def step(params, v, b, batch, seen):
-        q = _query_fn(spec, params, item_dev, user_dev, batch)
-        return topk_with_mask(q, v, b, seen, k=k, recall_target=target,
-                              score_mem_mb=mem)
-    return step
 
 
 def _pad_seen(seen, n: int, width: int) -> np.ndarray:
@@ -109,12 +71,13 @@ def _auto_width(seen, fallback: int = 1) -> int:
 
 
 class Recommender:
-    """Serve a sequence or MF model from weights handed over as a param
-    tree.
+    """Load the latest checkpoint under cfg.train.train_dir and serve.
 
     Args:
-      cfg: the model's Config (the same JSON arec trains from).
-      params: arec-layout param tree, numpy arrays or torch tensors
+      cfg: the training Config (the same JSON the run used).
+      params: None (restore the latest checkpoint, and raise
+        FileNotFoundError when there is none), or an arec-layout param
+        tree handed over as it is, numpy arrays or torch tensors
         (`arec_torch.bridge`), e.g. `jax.tree.map(np.asarray, params)`.
       k: list length per request (default cfg.train.eval_topk).
       serve_batch: requests are padded to this batch size per dispatch.
@@ -123,7 +86,7 @@ class Recommender:
       device: where to serve; None = `cuda` (raises if there is none).
     """
 
-    def __init__(self, cfg: Config, params, k: int | None = None,
+    def __init__(self, cfg: Config, params=None, k: int | None = None,
                  serve_batch: int = 256, seen_width: int | None = None,
                  device=None):
         self.device = resolve_device(device)
@@ -136,30 +99,72 @@ class Recommender:
         self.k = k or cfg.train.eval_topk
         self.serve_batch = serve_batch
         self.seen_width = None if seen_width is None else max(seen_width, 1)
-        self._restored_step = None       # weights were handed in, not restored
-        ds = self._ds = load_or_prepare(cfg.data)
-        self.is_seq = cfg.model.model != "mf"
-        family = seq_mod.SeqSpec if self.is_seq else mf_mod.MFSpec
-        spec = self.spec = family.from_config(cfg, ds.user_schema,
-                                              ds.item_schema)
-        item_enc = spec.item_in if self.is_seq else spec.item
-        self._item_dev = attrs_to_device(
-            ds.item_attrs.restrict(item_enc.schema), item_enc, self.device)
-        self._user_dev = (attrs_to_device(
-            ds.user_attrs.restrict(spec.user.schema), spec.user, self.device)
-            if spec.user is not None else None)
-        self._params = bridge.to_torch(params, self.device)
-        if not self.is_seq:
-            self._params = _mf_params(spec, self._params)
+        if params is None:
+            t = self._trainer = Trainer(cfg, serve_only=True,
+                                        device=self.device)
+            if t.ckpt.latest_step() is None:
+                raise FileNotFoundError(
+                    f"no checkpoint under {cfg.train.train_dir!r} — refusing "
+                    "to serve an untrained model")
+            self._ds, self.spec = t.ds, t.spec
+            self._item_dev, self._user_dev = t.item_dev, t.user_dev
+            self._params = t._eval_params()
+            # checkpoints are labelled with the global step, so the
+            # restored state's step is the label refresh() compares against
+            self._restored_step = int(t.state.step)
+        else:
+            self._trainer = None
+            self._ds, self.spec, self._item_dev, self._user_dev = (
+                build_model(cfg, self.device))
+            self._params = bridge.to_torch(params, self.device)
+            if isinstance(self.spec, mf_mod.MFSpec):
+                self._params = _mf_params(self.spec, self._params)
+            self._restored_step = None   # handed in, not restored
+        self.is_seq = not isinstance(self.spec, mf_mod.MFSpec)
         with torch.inference_mode():
-            self._vb = _item_latents(cfg, spec, self._params, self._item_dev)
-        self._step = _serve_step(cfg, spec, self._item_dev, self._user_dev,
-                                 self.k)
+            self._vb = _item_latents(cfg, self.spec, self._params,
+                                     self._item_dev)
+        self._step = _serve_step(cfg, self.spec, self._item_dev,
+                                 self._user_dev, self.k)
 
     def refresh(self) -> bool:
-        raise NotImplementedError(
-            "refresh needs checkpoint restore, which is not ported yet: "
-            "later slice")
+        """Pick up the newest checkpoint in place: re-restore, re-encode the
+        item latent matrix and swap, keeping the same step function. The
+        old params and latents are dropped before the restore, so peak
+        residency never doubles; a failed refresh therefore leaves nothing
+        to serve, and says so.
+
+        Returns True when a newer checkpoint was loaded, False when the
+        latest checkpoint is the one being served. Not safe to call
+        concurrently with for_users / from_histories."""
+        t = self._trainer
+        if t is None:
+            raise RuntimeError("refresh follows a checkpoint; this "
+                               "Recommender's weights were handed in")
+        t.ckpt.drain()
+        latest = t.ckpt.latest_step()
+        if latest is None:
+            raise FileNotFoundError(
+                f"no checkpoint under {self.cfg.train.train_dir!r}")
+        if latest == self._restored_step:
+            return False
+        self._params = None
+        self._vb = None
+        try:
+            t._maybe_restore()
+            self._params = t._eval_params()
+            with torch.inference_mode():
+                vb = _item_latents(self.cfg, self.spec, self._params,
+                                   self._item_dev)
+        except Exception as e:
+            raise RuntimeError(
+                "Recommender.refresh failed mid-restore; this instance no "
+                "longer holds a servable state — rebuild it (the previous "
+                "state is freed before restoring to avoid doubling "
+                "residency)") from e
+        self._vb = vb
+        self._restored_step = int(t.state.step)
+        return True
 
     def for_users(self, user_ids, seen=None) -> np.ndarray:
         """Top-k item ids for known user ids (MF family). `seen`: optional
@@ -247,12 +252,14 @@ class Recommender:
 
 
 # ---------------------------------------------------------------------------
-# Line-oriented request loop (arec's `python -m arec.serve` protocol):
+# Standing server: `python -m arec_torch.serve --config cfg.json [--set ...]`
+# (arec's `python -m arec.serve` line protocol) on stdin / stdout:
 #
 #   MF family:        <user_id>[\t<seen_id,seen_id,...>]
 #   sequence family:  <hist_id,hist_id,...>   (history = exclusion list)
-#   commands:         !step, !quit; !refresh answers !err until the
-#                     checkpoint slice is ported
+#   commands:         !refresh   — pick up the newest checkpoint in place
+#                     !step      — print the served checkpoint step
+#                     !quit      — exit 0
 #
 # Responses: `<first_field>\t<id,id,...>`; unparseable lines answer
 # `!err <reason>` and the loop continues.
@@ -290,3 +297,25 @@ def _serve_loop(rec: Recommender, inp, out) -> int:
         except Exception as e:  # keep serving after a bad request
             print(f"!err {type(e).__name__}: {e}", file=out, flush=True)
     return 0
+
+
+def main(argv=None, inp=None, out=None, device=None) -> int:
+    """`python -m arec_torch.serve`: restore, print the banner, serve lines
+    from `inp` (stdin) to `out` (stdout). device: None = `cuda`."""
+    import sys
+
+    from arec_torch.cli.main import load_config, parse_args
+
+    cfg = load_config(parse_args(argv))
+    rec = Recommender(cfg, device=device)
+    print(f"!ok serving {cfg.train.train_dir} step {rec._restored_step} "
+          f"({'histories' if rec.is_seq else 'user ids'} on stdin; "
+          f"!refresh / !step / !quit)",
+          file=out or sys.stdout, flush=True)
+    return _serve_loop(rec, inp or sys.stdin, out or sys.stdout)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

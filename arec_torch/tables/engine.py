@@ -20,7 +20,12 @@ passes `make_subset_lookup`, which reads a subset table [dense prefix ++
 the step's unique gather rows] through a dense id→position map, so the
 gradient is O(touched rows). The subset helpers keep arec's static shapes:
 no step of them reads a data-dependent size back to the host.
-`make_compact_lookup` is not ported (ROADMAP A5).
+
+arec's `make_compact_lookup` (`train.compact_table_grads`) has no twin:
+its sort and unique exist to hand XLA's table-gradient scatter sorted,
+collision-free ids, and `embedding`'s CUDA backward already groups
+duplicate ids and writes each touched row once (see `dense_lookup`), so
+the dense step serves that knob with `dense_lookup`.
 """
 
 from __future__ import annotations
@@ -133,11 +138,14 @@ class EncoderSpec:
         return [f for f in self.mulhot_fields if not self._is_dense(f)]
 
 
-def init_encoder(gen: torch.Generator, spec: EncoderSpec) -> Params:
+def init_encoder(gen: torch.Generator, spec: EncoderSpec,
+                 device=None) -> Params:
     """One fused table ~ N(0, 1/sqrt(dim)) with every PAD row zeroed (and
-    the bias column, when present, zero), on `gen.device`."""
+    the bias column, when present, zero), on `device` (default
+    `gen.device`)."""
+    dev = gen.device if device is None else device
     t = torch.randn(spec.total_rows, spec.width, generator=gen,
-                    device=gen.device) / math.sqrt(spec.dim)
+                    device=dev) / math.sqrt(spec.dim)
     if spec.with_bias:
         t[:, spec.dim] = 0.0
     offsets = spec.field_offsets()
@@ -146,7 +154,7 @@ def init_encoder(gen: torch.Generator, spec: EncoderSpec) -> Params:
     params: Params = {"tables": {FUSED: t}}
     if spec.needs_proj:
         params["fusion"] = init_fusion(
-            gen, len(spec.schema.fields), spec.dim, spec.nonlinear)
+            gen, len(spec.schema.fields), spec.dim, spec.nonlinear, dev)
     return params
 
 
@@ -212,10 +220,13 @@ def dense_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Single-device row gather of a [rows, width] table; ids clamp into
     range like jnp.take's mode="clip" (pad ids address a real zeroed pad
     row). Its gradient is the dense table-sized scatter-add of arec's dense
-    step, through `embedding`'s backward: `table[ids]`'s index_put
-    backward sums each run of repeated ids (pad ids, the row-0 stand-in of
-    empty tag slots) serially and took 52 ms of an 80 ms c4 train step on
-    the H100."""
+    step, through `embedding`'s backward, which on CUDA groups duplicate
+    ids and sums each id's cotangents into its row once, without atomics
+    (the compaction that arec's `make_compact_lookup` builds by hand for
+    XLA): `table[ids]`'s
+    index_put backward sums each run of repeated ids (pad ids, the row-0
+    stand-in of empty tag slots) serially and took 52 ms of an 80 ms c4
+    train step on the H100."""
     return torch.nn.functional.embedding(
         ids.clamp(0, table.shape[0] - 1), table)
 

@@ -1,0 +1,433 @@
+"""Trainer (port of `arec/train/loop.py`), one device.
+
+dataset load → model build → epoch loop with periodic eval (valid
+Recall@K), plateau LR decay and checkpoint → recommend mode emitting top-K
+lists. The steps are the port's (`train/step.py` dense, `train/sparse.py`
+touched rows), so every kernel of the path runs through them: the LSTM or
+GRU scan and the fused sampled-softmax CE in the loss, the row scatter in
+the sparse step's write-back.
+
+Resume is exact, as in arec: each step's key is `step_generator(seed,
+step)`, a pure function of the global step; the batch order is a pure
+function of (seed, epoch); a checkpoint records the step within the epoch
+(the iterator fast-forwards past consumed batches) and the plateau-decay
+state (the previous window's mean loss and the open loss window).
+
+The losses stay on the device: a step's loss joins the window as a 0-d
+tensor, and the window is stacked and read back only at the eval cadence
+(one host sync per `steps_per_checkpoint` steps, not one per step).
+
+Config knobs arec's Trainer reads, each honoured or refused:
+
+  steps_per_dispatch = K  runs as K single steps: arec's K-step `lax.scan`
+                          is step-for-step equal to them (its CUDA-graph
+                          counterpart is ROADMAP B9); arec's
+                          `steps_per_checkpoint % K` error is kept.
+  compact_table_grads     served by `engine.dense_lookup`, whose
+                          `embedding` backward already groups duplicate
+                          ids (the engine docstring).
+  eval_recall_target < 1  raises (the approximate top-k, ROADMAP A4);
+                          so does serve_recall_target < 1, at recommend().
+  a mesh (data·model > 1) raises (ROADMAP A7), in the specs' from_config.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import time
+
+import torch
+
+from arec_torch import resolve_device
+from arec_torch.config import Config
+from arec_torch.data.dataset import eval_batches, mf_batches, seq_batches
+from arec_torch.data.io import load_or_prepare
+from arec_torch.data.prefetch import prefetch, to_device
+from arec_torch.losses.sampling import make_pop
+from arec_torch.models import mf as mf_mod
+from arec_torch.models import seq as seq_mod
+from arec_torch.tables.engine import (
+    attrs_to_device, dense_lookup,
+)
+from arec_torch.train import sparse as sparse_mod
+from arec_torch.train.checkpoint import Checkpointer, abstract_like
+from arec_torch.train.evalu import recall_hits, topk_with_mask
+from arec_torch.train.metrics import MetricLogger
+from arec_torch.train.profile import StepProfiler
+from arec_torch.train.step import (
+    decay_lr, init_state, make_optimizer, make_train_step, step_generator,
+)
+
+
+def build_model(cfg: Config, device):
+    """The prepared dataset, the model spec of cfg's family, and the item
+    and user attribute maps on `device` (None for a sequence model without
+    a user encoder)."""
+    ds = load_or_prepare(cfg.data)
+    if cfg.model.model == "lstm":
+        spec = seq_mod.SeqSpec.from_config(cfg, ds.user_schema,
+                                           ds.item_schema)
+        item_enc = spec.item_in
+    else:
+        spec = mf_mod.MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+        item_enc = spec.item
+    item_dev = attrs_to_device(ds.item_attrs.restrict(item_enc.schema),
+                               item_enc, device)
+    user_dev = (attrs_to_device(ds.user_attrs.restrict(spec.user.schema),
+                                spec.user, device)
+                if spec.user is not None else None)
+    return ds, spec, item_dev, user_dev
+
+
+def _item_latents(cfg: Config, spec, params, item_dev):
+    """All-item latent matrix + bias; serve_latents_dtype="compute" pre-casts
+    the matrix to the compute dtype once (scores are unchanged: top-k casts
+    its operands anyway)."""
+    if isinstance(spec, mf_mod.MFSpec):
+        v, b = mf_mod.mf_item_latents(params, spec, item_dev)
+    else:
+        v, b = seq_mod.seq_item_latents(params, spec, item_dev)
+    if cfg.train.serve_latents_dtype == "compute":
+        v = v.to(spec.dtype)
+    return v, b
+
+
+def _query_fn(spec, params, item_dev, user_dev, batch):
+    """Eval / serving query encode: MF's user latents, or the final
+    recurrent state after each history."""
+    if isinstance(spec, mf_mod.MFSpec):
+        return mf_mod.mf_user_latents(params, spec, user_dev, batch["user"])
+    return seq_mod.seq_final_state_full(params, spec, item_dev, user_dev,
+                                        batch)
+
+
+def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int):
+    """Per-batch serving step: queries → seen-masked exact top-k. Like
+    arec's single-device step it passes no compute dtype to the top-k, so
+    the scores take bf16 operands even when the model computes in f32."""
+    target = cfg.train.serve_recall_target
+    mem = cfg.train.serve_score_mem_mb
+    if target < 1.0:
+        raise NotImplementedError(
+            "train.serve_recall_target < 1 (approximate top-k) is not "
+            "ported (ROADMAP A4); serve with 1.0")
+
+    def step(params, v, b, batch, seen):
+        q = _query_fn(spec, params, item_dev, user_dev, batch)
+        return topk_with_mask(q, v, b, seen, k=k, recall_target=target,
+                              score_mem_mb=mem)
+    return step
+
+
+class Trainer:
+    def __init__(self, cfg: Config, serve_only: bool = False, device=None):
+        """serve_only=True builds a restore-only trainer: the state is
+        shaped on the `meta` device (no random init and no optimizer
+        state; at XING scale those are gigabytes that the restore would
+        overwrite) and no step function is built. evaluate(), recommend()
+        and the serving helpers work as usual; train() raises.
+        device: where to train; None = `cuda` (raises if there is none)."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.serve_only = serve_only
+        t = cfg.train
+        if t.eval_recall_target < 1.0:
+            raise NotImplementedError(
+                "train.eval_recall_target < 1 (approximate top-k eval) is "
+                "not ported (ROADMAP A4); evaluate with 1.0")
+        self.is_seq = cfg.model.model == "lstm"
+        self.ds, self.spec, self.item_dev, self.user_dev = build_model(
+            cfg, self.device)
+        self.lookup = dense_lookup   # also for compact_table_grads
+
+        # sampler proposal, as arec's (`arec/train/loop.py:204-225`)
+        if t.batch_ht and t.loss not in ("mw", "bbpr"):
+            raise ValueError(
+                "train.batch_ht only applies to the in-batch losses "
+                f"(loss=mw|bbpr); got model={cfg.model.model!r} "
+                f"loss={t.loss!r}")
+        if t.batch_ht:
+            self.pop = make_pop(self.ds.item_freq, 1.0, self.device)
+        elif t.sampler == "pop":
+            self.pop = make_pop(self.ds.item_freq, t.sampler_power,
+                                self.device)
+        else:
+            self.pop = None
+
+        self.opt = make_optimizer(t.optimizer, t.learning_rate)
+        self.sparse = t.sparse_update
+        init = seq_mod.init_seq if self.is_seq else mf_mod.init_mf
+        if serve_only:
+            params = init(torch.Generator().manual_seed(t.seed), self.spec,
+                          device="meta")
+        else:
+            params = init(torch.Generator(device=self.device).manual_seed(
+                t.seed), self.spec)
+        self._paths = sparse_mod.table_paths(self.is_seq, self.spec)
+        if self.sparse:
+            self.state = sparse_mod.init_sparse_state(
+                params, self._paths, self.opt, t.optimizer)
+        else:
+            self.state = init_state(params, self.opt)
+        del params
+        if not serve_only:
+            if self.sparse:
+                self.step_fn = sparse_mod.make_sparse_train_step(
+                    self.is_seq, self.spec, self.user_dev, self.item_dev,
+                    self.opt, t.learning_rate, t.optimizer, pop=self.pop)
+            else:
+                self.step_fn = make_train_step(self._loss_fn(), self.opt,
+                                               t.learning_rate)
+
+        self.dispatch_k = t.steps_per_dispatch
+        if self.dispatch_k > 1 and not serve_only and (
+                t.steps_per_checkpoint % self.dispatch_k):
+            raise ValueError(
+                "steps_per_checkpoint must be a multiple of "
+                f"steps_per_dispatch ({t.steps_per_checkpoint} % "
+                f"{self.dispatch_k})")
+
+        self.ckpt = Checkpointer(t.train_dir, async_save=t.async_ckpt)
+        self.metrics = MetricLogger(t.train_dir, tensorboard=t.tensorboard,
+                                    enabled=not serve_only)
+        self.start_epoch = 0
+        self.start_step_in_epoch = 0
+        self._resume = {"prev_loss": None, "window": [], "best_recall": 0.0}
+        self._maybe_restore()
+
+    # ------------------------------------------------------------------
+    def _loss_fn(self):
+        spec, lookup, pop = self.spec, self.lookup, self.pop
+        item_dev, user_dev = self.item_dev, self.user_dev
+        if self.is_seq:
+            def loss_fn(p, batch, gen):
+                return seq_mod.seq_loss(p, spec, item_dev, user_dev, batch,
+                                        gen, lookup_fn=lookup,
+                                        time_major=True, pop=pop)
+        else:
+            def loss_fn(p, batch, gen):
+                return mf_mod.mf_loss(p, spec, user_dev, item_dev, batch,
+                                      gen, lookup_fn=lookup, pop=pop)
+        return loss_fn
+
+    def _batches(self, epoch: int):
+        t = self.cfg.train
+        if self.is_seq:
+            return seq_batches(self.ds, t.batch_size, self.spec.pack_len,
+                               t.seed, epoch)
+        return mf_batches(self.ds, t.batch_size, t.seed, epoch)
+
+    def _eval_params(self):
+        """Plain param tree for eval paths (sparse Adagrad stores tables
+        packed [V, 2D]; these are views of their param halves)."""
+        if self.sparse and self.cfg.train.optimizer == "adagrad":
+            return sparse_mod.unpack_params(self.state.params, self._paths)
+        return self.state.params
+
+    def _item_latents(self, params=None):
+        params = self._eval_params() if params is None else params
+        return _item_latents(self.cfg, self.spec, params, self.item_dev)
+
+    def _query_fn(self, params, batch):
+        return _query_fn(self.spec, params, self.item_dev, self.user_dev,
+                         batch)
+
+    def _stage_eval(self, batch):
+        """An eval batch and its users' seen slab, on the device."""
+        tb = to_device(self.device)(batch)
+        seen = torch.from_numpy(self.ds.seen_items[batch["user"]]).to(
+            self.device)
+        return tb, seen
+
+    @torch.no_grad()
+    def evaluate(self, k: int | None = None, exact: bool = False) -> float:
+        """Valid Recall@K with seen-item masking. exact=True overrides the
+        periodic-eval subsample (train.eval_max_batches): the number to
+        report."""
+        t = self.cfg.train
+        k = k or t.eval_topk
+        params = self._eval_params()
+        v, b = self._item_latents(params)
+        hits = total = 0.0
+        n = 0
+        cap = 0 if exact else t.eval_max_batches
+        L = self.spec.pack_len if self.is_seq else 0
+        for batch in eval_batches(self.ds, t.eval_batch_size,
+                                  max_seq_len=L):
+            tb, seen = self._stage_eval(batch)
+            h, c = recall_hits(self._query_fn(params, tb), v, b, seen,
+                               tb["pos_item"], tb["valid"], k=k)
+            hits += float(h)
+            total += float(c)
+            n += 1
+            if cap and n >= cap:
+                break
+        return hits / max(total, 1.0)
+
+    @torch.no_grad()
+    def recommend(self, k: int | None = None, out_path: str | None = None):
+        """Top-K lists for every eval user; with out_path, also the
+        submission file, one `user\\tid,id,...` line per user."""
+        t = self.cfg.train
+        k = k or t.eval_topk
+        params = self._eval_params()
+        v, b = self._item_latents(params)
+        step = _serve_step(self.cfg, self.spec, self.item_dev, self.user_dev,
+                           k)
+        rows = []
+        L = self.spec.pack_len if self.is_seq else 0
+        for batch in eval_batches(self.ds, t.eval_batch_size,
+                                  max_seq_len=L):
+            tb, seen = self._stage_eval(batch)
+            _, ids = step(params, v, b, tb, seen)
+            for u, row, ok in zip(batch["user"], ids.cpu().numpy(),
+                                  batch["valid"]):
+                if ok:
+                    rows.append((int(u), row.tolist()))
+        if out_path:
+            with open(out_path, "w") as f:
+                for u, items in rows:
+                    f.write(f"{u}\t{','.join(map(str, items))}\n")
+        return rows
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _data_pos(pos: dict, prev_loss: float, window,
+                  best_recall: float) -> dict:
+        """Checkpoint position metadata: data-iterator position plus the
+        plateau-decay / best-metric state (JSON-safe: inf → None)."""
+        return {"epoch": pos["epoch"],
+                "step_in_epoch": pos["step_in_epoch"],
+                "prev_loss": (None if prev_loss == float("inf")
+                              else float(prev_loss)),
+                "window": [float(x) for x in window],
+                "best_recall": float(best_recall)}
+
+    def _maybe_restore(self) -> None:
+        """Restore the latest checkpoint, if there is one; a checkpoint
+        that exists must restore (training a fresh model over a populated
+        train_dir would corrupt the run). The current state is dropped
+        first, so the card never holds two."""
+        if self.ckpt.latest_step() is None:
+            return
+        self.state = abstract_like(self.state)
+        self.state, data_pos, _ = self.ckpt.restore(self.state, self.device)
+        self.start_epoch = int(data_pos.get("epoch", 0))
+        self.start_step_in_epoch = int(data_pos.get("step_in_epoch", 0))
+        self._resume = {"prev_loss": data_pos.get("prev_loss"),
+                        "window": list(data_pos.get("window", [])),
+                        "best_recall": float(data_pos.get("best_recall",
+                                                          0.0))}
+        print(f"[ckpt] restored step {int(self.state.step)} "
+              f"(epoch {self.start_epoch}+{self.start_step_in_epoch} "
+              f"steps)", flush=True)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self) -> dict:
+        """Epoch loop with periodic eval, plateau LR decay and checkpoint.
+        Returns the final metrics summary."""
+        if self.serve_only:
+            raise RuntimeError("Trainer(serve_only=True) cannot train — "
+                               "construct a full Trainer")
+        t = self.cfg.train
+        best_recall = self._resume["best_recall"]
+        rp = self._resume["prev_loss"]
+        prev_loss = float("inf") if rp is None else float(rp)
+        window = [torch.tensor(x, dtype=torch.float32, device=self.device)
+                  for x in self._resume["window"]]
+        steps_done = int(self.state.step)
+        ex_since, t_since = 0, time.time()
+        profiler = StepProfiler(self.device)
+        skip = self.start_step_in_epoch
+        pos = {"step_in_epoch": 0, "epoch": self.start_epoch}
+        eval_events = 0
+
+        def after_step(loss, lr) -> bool:
+            """Counters + periodic eval / plateau decay / checkpoint.
+            Returns True when max_steps is reached."""
+            nonlocal steps_done, ex_since, t_since, best_recall, prev_loss
+            nonlocal eval_events
+            window.append(loss)
+            ex_since += t.batch_size
+            steps_done += 1
+            pos["step_in_epoch"] += 1
+            if steps_done % t.steps_per_checkpoint == 0:
+                self._sync()
+                dt = time.time() - t_since
+                mean_loss = float(torch.stack(window).mean())
+                recall = self.evaluate()
+                best_recall = max(best_recall, recall)
+                self.metrics.log(
+                    steps_done, loss=mean_loss, recall_at_k=recall,
+                    lr=float(lr), examples_per_s=ex_since / dt,
+                    examples_per_s_per_chip=ex_since / dt)
+                if mean_loss > prev_loss:        # plateau decay
+                    self.state = decay_lr(self.state, t.lr_decay)
+                prev_loss = mean_loss
+                window.clear()
+                ex_since, t_since = 0, time.time()
+                eval_events += 1
+                # steps_per_checkpoint is the EVAL cadence; saves ride
+                # every Nth eval (the final checkpoint is always written)
+                if eval_events % max(t.save_every_evals, 1) == 0:
+                    self.ckpt.save(steps_done, self.state,
+                                   self._data_pos(pos, prev_loss, window,
+                                                  best_recall),
+                                   self.cfg.to_json())
+            return bool(t.max_steps and steps_done >= t.max_steps)
+
+        # unlike arec, a run restored at max_steps takes no further step
+        stop = bool(t.max_steps and steps_done >= t.max_steps)
+        for epoch in range(self.start_epoch, t.n_epoch):
+            if stop:
+                break
+            batches = self._batches(epoch)
+            pos["epoch"], pos["step_in_epoch"] = epoch, 0
+            if skip:
+                batches = itertools.islice(batches, skip, None)
+                pos["step_in_epoch"] = skip
+                skip = 0
+            with contextlib.closing(prefetch(
+                    batches, depth=max(2, self.dispatch_k + 1),
+                    transform=to_device(self.device))) as it:
+                for tb in it:
+                    profiler.on_step(steps_done)
+                    self.state, m = self.step_fn(
+                        self.state, tb, step_generator(t.seed, steps_done))
+                    stop = after_step(m["loss"], m["lr"])
+                    if stop:
+                        break
+        profiler.close()
+        self.ckpt.drain()   # async saves: publish before the step check
+        if steps_done and self.ckpt.latest_step() != steps_done:
+            # the final checkpoint: a tail shorter than steps_per_checkpoint
+            # must not be lost (serving restores the latest step)
+            self.ckpt.save(steps_done, self.state,
+                           self._data_pos(pos, prev_loss, window,
+                                          best_recall),
+                           self.cfg.to_json())
+            self.ckpt.drain()
+        approx = bool(t.eval_max_batches)
+        final_recall = self.evaluate()
+        if approx:
+            print("[eval] WARNING: final recall_at_k is APPROXIMATE "
+                  f"(eval_max_batches={t.eval_max_batches}, "
+                  f"eval_recall_target={t.eval_recall_target}); call "
+                  "trainer.evaluate(exact=True) for the exact metric",
+                  flush=True)
+        best_recall = max(best_recall, final_recall)
+        self.metrics.log(steps_done, final_recall_at_k=final_recall,
+                         best_recall_at_k=best_recall,
+                         final_eval_approximate=float(approx))
+        return {"steps": steps_done, "recall_at_k": final_recall,
+                "best_recall_at_k": best_recall}
+
+    def close(self) -> None:
+        """Publish an in-flight checkpoint write and close the metrics
+        stream."""
+        self.ckpt.drain()
+        self.metrics.close()

@@ -1,0 +1,45 @@
+"""Profiling hooks (port of `arec/train/profile.py`) on `torch.profiler`.
+
+Set AREC_PROFILE_DIR=/path and the Trainer captures a trace of steps
+[AREC_PROFILE_START, AREC_PROFILE_START + AREC_PROFILE_STEPS) (defaults
+10 and 5, arec's), written as a Chrome trace JSON into that directory
+(viewable in Perfetto). On a CUDA device the trace holds the kernels.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+class StepProfiler:
+    def __init__(self, device="cpu"):
+        self.dir = os.environ.get("AREC_PROFILE_DIR", "")
+        self.start = int(os.environ.get("AREC_PROFILE_START", "10"))
+        self.steps = int(os.environ.get("AREC_PROFILE_STEPS", "5"))
+        self._cuda = torch.device(device).type == "cuda"
+        self._prof = None
+        self._first = None
+
+    def on_step(self, step: int) -> None:
+        if not self.dir:
+            return
+        if self._prof is None and self.start <= step < self.start + self.steps:
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self._cuda else [])
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._first = step
+        elif self._prof is not None and step >= self.start + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        self._prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self._prof.export_chrome_trace(
+            os.path.join(self.dir, f"trace_steps_{self._first}.json"))
+        self._prof = None

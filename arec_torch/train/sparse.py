@@ -29,9 +29,9 @@ rsqrt(a + eps) — each path keeps arec's own formula.
 
 As in the dense port, the tables and the other parameters are updated in
 place: the state passed to a step is consumed by it. arec's
-`make_sparse_multi_step` (K steps in one `lax.scan`) is not ported, as
-`steps_per_dispatch` is not. The mesh variant (`sparse_mesh.py`) waits for
-the multi-GPU port (ROADMAP A7).
+`make_sparse_multi_step` (K steps in one `lax.scan`) is not ported: the
+port's Trainer runs `steps_per_dispatch` as K single steps. The mesh
+variant (`sparse_mesh.py`) waits for the multi-GPU port (ROADMAP A7).
 """
 
 from __future__ import annotations

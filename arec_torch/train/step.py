@@ -21,7 +21,8 @@ Where arec donates the state to its jitted step, the port updates the
 parameter and optimizer tensors in place: the state passed to a step is
 consumed by it. arec's `steps_per_dispatch` (K steps in one `lax.scan`,
 which amortises dispatch over a remote TPU and is step-for-step identical
-to K single steps) is not ported.
+to K single steps) runs as K single steps in the port's Trainer
+(`arec_torch.train.loop`).
 
 A step's `gen` is its key (see arec_torch.rng): callers make it a pure
 function of (seed + 777, global step) with `step_generator`, as arec's

@@ -47,7 +47,19 @@
    step; checks one sparse step against one dense step from the same
    state, and that step's write-back, kernel against plain version, bit
    for bit; then Recall@30.
-7. Prints one `{"kernels": [...]}` JSON line and, last, the
+7. The main path as its users run it, on a temporary train_dir under
+   _train/ (deleted at the end): syn_xing_full's MF trained through
+   `arec_torch.cli.main.main` (the Trainer, async checkpoints of ~2.9 GB
+   every 16 steps, steps_per_dispatch 8) to step 32; a second invocation
+   to 48 that restores step 32 mid-epoch, held against a straight 48-step
+   run (bit-equality reported); `Recommender(cfg)` served from the
+   checkpoint, a 16-step run that writes a newer one, `refresh()` (its
+   peak memory against the first restore's, its lists against the
+   trainer's in-memory state and a fresh Recommender) and `--recommend
+   --out`; c4's LSTM through the Trainer (16 steps, one 4 GB save) and
+   served from its checkpoint. Launches of each kernel are counted over
+   these runs.
+8. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -917,7 +929,8 @@ def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
     import numpy as np
     import torch
     from arec_torch.models.seq import SeqSpec, init_seq
-    from arec_torch.serve import Recommender, _item_latents, _query_fn
+    from arec_torch.serve import Recommender
+    from arec_torch.train.loop import _item_latents, _query_fn
     from arec_torch.serve import _serve_loop
 
     scans, others = scan_counters(cell)
@@ -1035,7 +1048,7 @@ def train_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS, steps=TRAIN_STEPS):
     from arec_torch.models.seq import (SeqSpec, init_seq, seq_item_latents,
                                        seq_loss)
     from arec_torch.rng import generator
-    from arec_torch.serve import _query_fn
+    from arec_torch.train.loop import _query_fn
     from arec_torch.tables.engine import attrs_to_device
     from arec_torch.train.step import (_leaves, init_state, make_optimizer,
                                        make_train_step, step_generator,
@@ -1443,7 +1456,8 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     import numpy as np
     import torch
     from arec_torch.models.mf import MFSpec, init_mf
-    from arec_torch.serve import Recommender, _query_fn, _serve_loop
+    from arec_torch.serve import Recommender, _serve_loop
+    from arec_torch.train.loop import _query_fn
     from arec_torch.train.sparse import pack_tables, table_paths
 
     cfg, ds, prep_s = load_mf(sets, cuts)
@@ -1566,7 +1580,7 @@ def mf_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
     profile of one step; one sparse step against one dense step from the
     same state (and that step's write-back, kernel against plain version,
     bit for bit, and timed); Recall@30. Returns (launches, write-back
-    times)."""
+    times, examples/s of the bare steps)."""
     import itertools
 
     import torch
@@ -1641,9 +1655,9 @@ def mf_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         f"S={spec.num_sampled}, {spec.compute_dtype}): first step "
         f"{first_s:.3f} s, then {steps} steps: loss {float(loss[0]):.4f} -> "
         f"{float(loss[-1]):.4f}; step {step_ms:.3f} ms, "
-        f"{tc.batch_size * steps / wall_s:.1f} examples/s; peak device "
-        f"memory {peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the "
-        f"first step); "
+        f"{tc.batch_size * steps / wall_s:.1f} examples/s (bare steps); "
+        f"peak device memory {peak_gib:.2f} GiB ({held_gib:.2f} GiB held "
+        f"before the first step); "
         f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
     log("loss per step: " + " ".join(f"{float(x):.4f}" for x in loss))
     b = on_dev(host[steps + 1])
@@ -1745,7 +1759,333 @@ def mf_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
                     lambda tb: mf_user_latents(params, spec, udev,
                                                tb["user"]),
                     f"(MF) after {steps + 3} sparse steps")
-    return launches, wb
+    return launches, wb, tc.batch_size * steps / wall_s
+
+
+class Tee(io.TextIOBase):
+    """A stdout that prints through and keeps a copy (the Trainer's
+    `[ckpt]` lines and the CLI's summary are read back from it)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_logged(fn, *args, **kw):
+    """fn(*args, **kw) with stdout kept; returns (result, its output)."""
+    import contextlib
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn(*args, **kw)
+    return result, tee.buf.getvalue()
+
+
+def saves_in(out):
+    """The `[ckpt] saved step ...` lines of a run's output, as dicts."""
+    import re
+    pat = re.compile(r"\[ckpt\] saved step (\d+): (\d+) bytes; save\(\) "
+                     r"blocked ([\d.]+) s, write ([\d.]+) s \((\w+)\)")
+    return [{"step": int(m[1]), "bytes": int(m[2]),
+             "blocked_s": float(m[3]), "write_s": float(m[4]),
+             "mode": m[5]} for m in pat.finditer(out)]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def load_ckpt_state(train_dir, step):
+    """A checkpoint's TrainState dict, memory-mapped on the host."""
+    import torch
+    return torch.load(os.path.join(train_dir, "ckpt", str(step), "state.pt"),
+                      map_location="cpu", weights_only=True, mmap=True)
+
+
+def compare_states(a, b, path=""):
+    """(bit-equal, max |a − b|, the differing leaves) of two state trees,
+    each leaf held to SPARSE_DENSE."""
+    import torch
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, sorted(a), sorted(b))
+        parts = [compare_states(a[k], b[k], f"{path}/{k}") for k in sorted(a)]
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        parts = [compare_states(x, y, f"{path}/{i}")
+                 for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        if torch.equal(a, b):
+            return True, 0.0, []
+        torch.testing.assert_close(a, b, **SPARSE_DENSE)
+        gap = float((a.double() - b.double()).abs().max())
+        return False, gap, [path]
+    return (all(p[0] for p in parts), max((p[1] for p in parts), default=0.0),
+            [x for p in parts for x in p[2]])
+
+
+MF_PACKED_BYTES = 4 * sum(rows * width for rows, width, _ in
+                          MF_SHAPES.values())
+
+
+def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
+                  twin=TWIN, c4_cuts=CUTS, root=None):
+    """The port's main path as its users run it, on a temporary train_dir
+    that the phase deletes at its end:
+    (a) syn_xing_full's MF trained through `cli.main.main` (Trainer, async
+        checkpoints every 16 steps, steps_per_dispatch 8) for 32 steps;
+    (b) a second invocation to 48 steps that restores step 32 and resumes
+        mid-epoch, held against a straight 48-step run;
+    (c) `Recommender(cfg)` served from the checkpoint, a 16-step run that
+        writes a newer one, `refresh()` (peak memory against the first
+        restore's), and `--recommend --out`;
+    (d) c4's LSTM through the Trainer (16 steps, one save), served from
+        its checkpoint.
+    Returns {kernel name: launches} over the Trainer runs."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from arec_torch.cli.main import load_config, main as cli_main, parse_args
+    from arec_torch.data.dataset import mf_batches
+    from arec_torch.data.prefetch import to_device
+    from arec_torch.serve import Recommender, _serve_loop
+    from arec_torch.train.loop import Trainer
+
+    base = os.path.join(ROOT, "_train") if root is None else root
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-", dir=base)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    log(f"trainer phase under {root} ({free_gb:.1f} GB free on its disk)")
+    counters = all_counters()
+    launches = {k: 0 for k in counters}
+
+    def counted(fn, *args, **kw):
+        for f in counters.values():                  # ---- the main path
+            f.launches = 0
+        result = run_logged(fn, *args, **kw)
+        for k, f in counters.items():                # ---- read just after
+            launches[k] += f.launches
+        return result, {k: f.launches for k, f in counters.items()
+                        if f.launches}
+
+    def mf_argv(train_dir, max_steps, **extra):
+        s = {**sets, **{k: v for k, (_, v) in cuts.items()},
+             "train.steps_per_checkpoint": 16, "train.eval_max_batches": 4,
+             "train.async_ckpt": "true", "train.train_dir": train_dir,
+             "train.max_steps": max_steps, **extra}
+        return ["--config", XING] + [a for k, v in s.items()
+                                     for a in ("--set", f"{k}={v}")]
+
+    try:
+        # ---- (a) MF through the CLI -------------------------------------
+        mf_dir = os.path.join(root, "mf")
+        t0 = time.perf_counter()
+        (rc, out), used = counted(cli_main, mf_argv(mf_dir, 32), device=dev)
+        wall_s = time.perf_counter() - t0
+        assert rc == 0, rc
+        summary = json.loads(out.strip().splitlines()[-1])
+        assert summary["steps"] == 32, summary
+        cfg = load_config(parse_args(mf_argv(mf_dir, 32)))
+        tc = cfg.train
+        assert (tc.steps_per_dispatch, tc.sparse_update, tc.async_ckpt) == (
+            8, True, True), tc
+        with open(os.path.join(mf_dir, "metrics.jsonl")) as f:
+            records = [json.loads(x) for x in f]
+        assert [r["step"] for r in records] == [16, 32, 32], records
+        saves = saves_in(out)
+        assert [s["step"] for s in saves] == [16, 32], saves
+        if shapes is MF_SHAPES:
+            assert all(MF_PACKED_BYTES <= s["bytes"] <= 1.01 * MF_PACKED_BYTES
+                       for s in saves), (saves, MF_PACKED_BYTES)
+            assert (used.get("sampled_ce_fwd"), used.get("sampled_ce_bwd"),
+                    used.get("row_scatter")) == (32, 32, 64), used
+        assert set(used) <= {"sampled_ce_fwd", "sampled_ce_bwd",
+                             "row_scatter"}, used
+        log(f"(a) MF trained through cli.main.main to step 32 in "
+            f"{wall_s:.2f} s (dataset load, state build, 32 steps, 3 evals "
+            f"of {tc.eval_max_batches} batches, 2 async saves): summary "
+            f"{summary}")
+        for r in records:
+            log(f"  metrics record {r}")
+        log(f"  launches {used}")
+        for s in saves:
+            log(f"  checkpoint step {s['step']}: {s['bytes']} bytes "
+                f"({MF_PACKED_BYTES} of packed tables by reckoning); save() "
+                f"blocked the loop {s['blocked_s']:.3f} s, the async write "
+                f"took {s['write_s']:.3f} s")
+        log(f"  examples/s through the Trainer's loop (metrics, windows of "
+            f"16 steps): {[round(r['examples_per_s'], 1) for r in records if 'examples_per_s' in r]}")
+
+        # ---- (b) exact resume ---------------------------------------------
+        (rc, out), used_b = counted(cli_main, mf_argv(mf_dir, 48),
+                                    device=dev)
+        assert rc == 0, rc
+        assert "[ckpt] restored step 32 (epoch 0+32 steps)" in out, out[-2000:]
+        assert [s["step"] for s in saves_in(out)] == [48], saves_in(out)
+        straight = os.path.join(root, "straight")
+        (rc, _), _ = counted(cli_main, mf_argv(
+            straight, 48, **{"train.save_every_evals": 3}), device=dev)
+        assert rc == 0, rc
+        t0 = time.perf_counter()
+        equal, gap, leaves = compare_states(load_ckpt_state(mf_dir, 48),
+                                            load_ckpt_state(straight, 48))
+        _, ds, load_s = load_mf(sets, cuts)
+        log(f"(b) resumed at step 32 (mid-epoch: 32 of "
+            f"{len(ds.train_users) // tc.batch_size} batches) and trained "
+            f"to 48; its checkpoint against a straight "
+            f"48-step run's: bit-equal {equal}, max |Δ| {gap:.3e} "
+            f"(tolerance {SPARSE_DENSE}); differing leaves {leaves} "
+            f"({time.perf_counter() - t0:.1f} s to compare)")
+        shutil.rmtree(straight)
+        # the Trainer's MF input path alone (its windows above include it;
+        # mf_train_phase's bare steps pack their batches before the clock)
+        t0 = time.perf_counter()
+        host = list(itertools.islice(
+            mf_batches(ds, tc.batch_size, tc.seed, 0), 16))
+        pack_ms = (time.perf_counter() - t0) / len(host) * 1e3
+        put = to_device(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in host:
+            put(b)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) / len(host) * 1e3
+        log(f"  MF input path alone, 16 batches of {tc.batch_size}: "
+            f"mf_batches {pack_ms:.4f} ms a batch (epoch permutation "
+            f"included), to_device {h2d_ms:.4f} ms a batch")
+
+        # ---- (c) serving from the checkpoint -------------------------------
+        users = ds.valid_users[:256].astype(np.int32)
+        seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist()
+                for u in users]
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rec = Recommender(cfg, device=dev)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated()
+        assert rec._restored_step == 48
+        ids48 = rec.for_users(users, seen=seen)
+        lines = [f"{users[0]}", "!step", "!refresh"]
+        out = io.StringIO()
+        _serve_loop(rec, io.StringIO("\n".join(lines) + "\n"), out)
+        answers = out.getvalue().strip().split("\n")
+        assert answers == [
+            f"{users[0]}\t{','.join(map(str, rec.for_users([users[0]])[0].tolist()))}",
+            "!ok step 48", "!ok current step 48"], answers
+        log(f"(c) Recommender(cfg) from the step-48 checkpoint: startup "
+            f"{startup_s:.3f} s (serve-only Trainer: dataset load — "
+            f"{load_s:.3f} s alone, from its cache — restore onto the card, "
+            f"item latents), peak device memory "
+            f"{restore_peak / 2**30:.3f} GiB ({held0 / 2**30:.3f} held "
+            f"before); {len(users)} users served, loop lines {answers[1:]}")
+
+        t0 = time.perf_counter()
+        (tr, out), used_c = counted(Trainer, load_config(parse_args(
+            mf_argv(mf_dir, 64))), device=dev)
+        (_, out2), used_c2 = counted(tr.train)
+        tr.close()
+        assert [s["step"] for s in saves_in(out2)] == [64], saves_in(out2)
+        mem = Recommender(cfg, tr._eval_params(), device=dev).for_users(
+            users, seen=seen)
+        for k, v in used_c2.items():
+            used_c[k] = used_c.get(k, 0) + v
+        log(f"    a 16-step run to step 64 (restored at 48) in "
+            f"{time.perf_counter() - t0:.2f} s; launches {used_c}")
+        del tr
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        held1 = torch.cuda.memory_allocated()
+        step_fn = rec._step
+        t0 = time.perf_counter()
+        assert rec.refresh() is True
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        refresh_peak = torch.cuda.max_memory_allocated()
+        assert rec._restored_step == 64 and rec._step is step_fn
+        ids64 = rec.for_users(users, seen=seen)
+        assert np.array_equal(ids64, mem), "refreshed != trainer's state"
+        assert not np.array_equal(ids64, ids48)
+        fresh = Recommender(cfg, device=dev).for_users(users, seen=seen)
+        assert np.array_equal(ids64, fresh), "refreshed != fresh"
+        assert refresh_peak <= 1.05 * restore_peak, (refresh_peak,
+                                                     restore_peak)
+        log(f"    refresh() -> True in {refresh_s:.3f} s: peak device "
+            f"memory {refresh_peak / 2**30:.3f} GiB across it "
+            f"({held1 / 2**30:.3f} held before) against the first "
+            f"restore's {restore_peak / 2**30:.3f} GiB (limit +5 %); its "
+            f"{len(users)} lists equal the Trainer's in-memory state's and "
+            f"a fresh Recommender's; ckpt dir holds "
+            f"{sorted(os.listdir(os.path.join(mf_dir, 'ckpt')))} "
+            f"({dir_bytes(os.path.join(mf_dir, 'ckpt')) / 1e9:.3f} GB)")
+        del rec
+        free()
+
+        tsv = os.path.join(root, "top30.tsv")
+        t0 = time.perf_counter()
+        (rc, out), _ = counted(cli_main, mf_argv(mf_dir, 64) + [
+            "--recommend", "--out", tsv], device=dev)
+        rec_s = time.perf_counter() - t0
+        assert rc == 0, rc
+        result = json.loads(out.strip().splitlines()[-1])
+        with open(tsv) as f:
+            n_rows = sum(1 for _ in f)
+        assert n_rows == result["users"] > 0, (n_rows, result)
+        log(f"    --recommend --out: {n_rows} rows (every eval user) in "
+            f"{rec_s:.2f} s (restore included); {result}")
+        shutil.rmtree(mf_dir)
+        free()
+
+        # ---- (d) c4's LSTM through the Trainer ---------------------------
+        c4_dir = os.path.join(root, "c4")
+        c4_sets = {**twin, **{k: v for k, (_, v) in c4_cuts.items()},
+                   "data.data_dir": DATA_DIR, "train.max_steps": 16,
+                   "train.steps_per_checkpoint": 8,
+                   "train.save_every_evals": 2, "train.eval_max_batches": 4,
+                   "train.train_dir": c4_dir}
+        cfg4, ds4, _ = load(C4, c4_sets)
+
+        def train_c4():
+            tr = Trainer(cfg4, device=dev)
+            tr.train()
+            tr.close()
+            return tr
+        t0 = time.perf_counter()
+        (tr, out), used_d = counted(train_c4)
+        d_s = time.perf_counter() - t0
+        saves = saves_in(out)
+        assert [s["step"] for s in saves] == [16], saves
+        for k in ("lstm_scan_fwd", "lstm_scan_bwd", "sampled_ce_fwd",
+                  "sampled_ce_bwd"):
+            assert used_d.get(k, 0) > 0, (k, used_d)
+        hists = [ds4.hist_items[u][: ds4.hist_lengths[u]].tolist()
+                 for u in range(8)]
+        served = Recommender(cfg4, device=dev).from_histories(hists)
+        mem = Recommender(cfg4, tr.state.params,
+                          device=dev).from_histories(hists)
+        assert served.shape == (8, cfg4.train.eval_topk)
+        assert np.array_equal(served, mem)
+        log(f"(d) c4 LSTM trained through the Trainer for 16 steps in "
+            f"{d_s:.2f} s; launches {used_d}; one save: {saves[0]['bytes']} "
+            f"bytes, save() blocked {saves[0]['blocked_s']:.3f} s, write "
+            f"{saves[0]['write_s']:.3f} s ({saves[0]['mode']}); "
+            f"Recommender(cfg).from_histories from the checkpoint equals the "
+            f"trainer's in-memory state on {len(hists)} histories")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def free():
@@ -1817,7 +2157,11 @@ def main() -> int:
         free()
     mf_serve_phase(dev)
     free()
-    trained["mf"], writeback = mf_train_phase(dev)
+    trained["mf"], writeback, bare_eps = mf_train_phase(dev)
+    free()
+    through_trainer = trainer_phase(dev)
+    log(f"MF examples/s: bare sparse steps {bare_eps:.1f} (the MF phase) "
+        f"beside the Trainer's loop in the metrics records above")
     free()
 
     def row(name, source, replaces, fn, launches, err, t, shape, library):
@@ -1968,6 +2312,10 @@ def main() -> int:
                 "forward"),
         scatter_row(),
     ]
+    for k in kernels:
+        # the Trainer phase's runs: the main path as users run it
+        k["launches_trainer"] = through_trainer[k["name"]]
+        k["launches"] += through_trainer[k["name"]]
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)

@@ -163,3 +163,57 @@ def test_mf_trains_and_serves_with_jax_and_arec_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("served")
+
+
+_CHILD_CLI = textwrap.dedent("""
+    import io
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from arec_torch import serve
+    from arec_torch.cli.main import main
+
+    torch.set_num_threads(1)
+    tmp, model = sys.argv[1], sys.argv[2]
+    argv = ["--set", f"model.model={model}", "--set", "model.dim=8",
+            "--set", "model.max_seq_len=6", "--set", f"data.data_dir={tmp}/d",
+            "--set", "data.syn_users=60", "--set", "data.syn_items=50",
+            "--set", "data.syn_interactions=600",
+            "--set", "train.batch_size=16", "--set", "train.num_sampled=16",
+            "--set", "train.max_steps=6", "--set", "train.steps_per_checkpoint=3",
+            "--set", f"train.sparse_update={str(model == 'mf').lower()}",
+            "--set", "train.async_ckpt=true",
+            "--set", "train.compute_dtype=float32",
+            "--set", f"train.train_dir={tmp}/t"]
+    assert main(argv, device="cpu") == 0
+    out = io.StringIO()
+    line = "1" if model == "mf" else "1,2,3"
+    assert serve.main(argv, io.StringIO(line + "\\n!step\\n"), out,
+                      device="cpu") == 0
+    lines = out.getvalue().strip().split("\\n")
+    assert lines[0].startswith("!ok serving") and lines[2] == "!ok step 6"
+    assert lines[1].startswith(line + "\\t"), lines
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("served", lines[1])
+""")
+
+
+@pytest.mark.parametrize("model", ["mf", "lstm"])
+def test_cli_trains_then_serves_from_checkpoint_with_jax_and_arec_blocked(
+        tmp_path, model):
+    """The entry points (`cli.main.main` training through the Trainer, its
+    checkpoint, then `serve.main` restoring it) stand alone."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD_CLI, str(tmp_path),
+                           model], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("served")

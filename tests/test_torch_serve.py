@@ -27,9 +27,12 @@ from arec_torch.cli.main import load_config, parse_args
 from arec_torch.config import Config as TConfig
 from arec_torch.data.io import load_or_prepare
 from arec_torch.models.seq import SeqSpec, init_seq
+from arec_torch.train.loop import _query_fn
 from torch_topk_check import assert_ids_equal_up_to_ties, ref_scores
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SERVE_BATCH = 16
 
@@ -70,7 +73,7 @@ def _port_queries(trec, histories, **kw):
         tb = {k: torch.from_numpy(v) for k, v in batch.items()
               if k != "seen"}
         with torch.inference_mode():
-            q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+            q = _query_fn(trec.spec, trec._params, trec._item_dev,
                                  trec._user_dev, tb)
         qs.append(q[:n].numpy())
         seens.append(batch["seen"][:n])
@@ -142,7 +145,8 @@ def test_serve_loop_lines(served):
     assert not set(h) & {int(x) for x in want.split(",")}
     assert lines[1].startswith("!err ValueError")
     assert lines[2] == "!ok step None"
-    assert lines[3].startswith("!err NotImplementedError")
+    # handed-in weights follow no checkpoint: !refresh answers !err
+    assert lines[3].startswith("!err RuntimeError: refresh follows")
     assert len(lines) == 4                     # nothing served after !quit
 
 
@@ -180,7 +184,7 @@ def served_mf(tmp_path_factory):
 def _mf_scores(trec, users, seen):
     tb = {"user": torch.from_numpy(users)}
     with torch.inference_mode():
-        q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+        q = _query_fn(trec.spec, trec._params, trec._item_dev,
                              trec._user_dev, tb).numpy()
     v, b = (x.float().numpy() for x in trec._vb)
     return ref_scores(q, v, b, tserve._pad_seen(seen, len(users),
@@ -212,7 +216,7 @@ def test_mf_queries_and_latents_match_arec(served_mf):
                                     {"user": jnp.asarray(users)}))
     tb = {"user": torch.from_numpy(users)}
     with torch.inference_mode():
-        got_q = tserve._query_fn(trec.spec, trec._params, trec._item_dev,
+        got_q = _query_fn(trec.spec, trec._params, trec._item_dev,
                                  trec._user_dev, tb)
     np.testing.assert_allclose(got_q.numpy(), want_q, rtol=1e-4, atol=1e-5)
     for got, want in zip(trec._vb, jrec._vb):
@@ -289,3 +293,149 @@ def test_recommender_refuses_a_device_mesh(tmp_path, config, mesh_data):
                                            spec), serve_batch=4, device="cpu")
     ids = rec.from_histories([[1, 2, 3], [4]])
     assert ids.shape == (2, cfg.train.eval_topk)
+
+
+# ---------------------------------------------------------------------------
+# Serving from a checkpoint: arec's Orbax checkpoints handed over through the
+# bridge into the port's own checkpoint, refresh, the refusal of an empty
+# train_dir, and `python -m arec_torch.serve`
+# ---------------------------------------------------------------------------
+
+def _port_checkpoint_of(jrec, train_dir, sparse):
+    """arec's latest Orbax checkpoint, read by arec's Checkpointer, bridged
+    and written as the port's checkpoint under `train_dir`; returns the
+    config that serves it."""
+    from arec.train.checkpoint import Checkpointer as JCheckpointer
+    from arec.train.checkpoint import abstract_like as jabstract_like
+    from arec_torch import bridge
+    from arec_torch.train.checkpoint import Checkpointer
+
+    jstate, _, _ = JCheckpointer(jrec.cfg.train.train_dir).restore(
+        jabstract_like(jrec._trainer.state))
+    jstate = jax.tree.map(np.asarray, jstate)
+    state = (bridge.sparse_train_state_from_arec(jstate) if sparse
+             else bridge.train_state_from_arec(jstate))
+    cfg = TConfig.from_json(jrec.cfg.to_json())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, train_dir=str(train_dir)))
+    Checkpointer(str(train_dir)).save(int(state.step), state,
+                                      {"epoch": 0, "step_in_epoch": 0},
+                                      cfg.to_json())
+    return cfg
+
+
+def test_mf_arec_checkpoint_served_from_the_ports(served_mf, tmp_path):
+    jrec, trec, _, users, seen = served_mf
+    cfg = _port_checkpoint_of(jrec, tmp_path / "t", sparse=True)
+    rec = tserve.Recommender(cfg, serve_batch=SERVE_BATCH, device="cpu")
+    assert rec._restored_step == jrec._restored_step
+    got = rec.for_users(users, seen=seen)
+    np.testing.assert_array_equal(got, trec.for_users(users, seen=seen))
+    want = jrec.for_users(users, seen=seen)
+    scores = _mf_scores(rec, users, seen)
+    assert_ids_equal_up_to_ties(
+        got, np.take_along_axis(scores, want.astype(np.int64), axis=1),
+        want, scores)
+
+
+def test_seq_arec_checkpoint_served_from_the_ports(served, tmp_path):
+    jrec, trec, hists = served
+    cfg = _port_checkpoint_of(jrec, tmp_path / "t", sparse=False)
+    rec = tserve.Recommender(cfg, serve_batch=SERVE_BATCH, device="cpu")
+    reqs, kw = _requests(hists, "long")
+    got = rec.from_histories(reqs, **kw)
+    np.testing.assert_array_equal(got, trec.from_histories(reqs, **kw))
+    want = jrec.from_histories(reqs, **kw)
+    q, seen, _ = _port_queries(rec, reqs, **kw)
+    v, b = (x.float().numpy() for x in rec._vb)
+    scores = ref_scores(q, v, b, seen)
+    assert_ids_equal_up_to_ties(
+        got, np.take_along_axis(scores, want.astype(np.int64), axis=1),
+        want, scores)
+
+
+def _mf_cfg(tmp_path, sparse, n_epoch=1):
+    return TConfig.from_json(Config(
+        data=DataConfig(dataset="synthetic", data_dir=str(tmp_path / "d"),
+                        syn_users=300, syn_items=250, syn_interactions=8000),
+        model=ModelConfig(model="mf", dim=16, use_attributes=True,
+                          dense_vocab_threshold=16),
+        train=TrainConfig(batch_size=64, num_sampled=32, n_epoch=n_epoch,
+                          steps_per_checkpoint=500, compute_dtype="float32",
+                          sparse_update=sparse,
+                          train_dir=str(tmp_path / "t"))).to_json())
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_refresh_follows_training(tmp_path, sparse):
+    """After arec's tests/test_serve.py:162: a standing Recommender picks up
+    the newest checkpoint in place and then answers as a freshly built one
+    (and as the trainer's in-memory state), keeping its step function; with
+    no newer checkpoint refresh is a no-op returning False."""
+    from arec_torch.train.loop import Trainer as TTrainer
+
+    TTrainer(_mf_cfg(tmp_path, sparse), device="cpu").train()
+    rec = tserve.Recommender(_mf_cfg(tmp_path, sparse), serve_batch=16,
+                             device="cpu")
+    users = np.arange(0, 40, 2, dtype=np.int32)
+    seen = [[int(x) for x in row if x >= 0]
+            for row in rec._ds.seen_items[users]]
+    before = rec.for_users(users, seen=seen)
+    assert rec.refresh() is False
+
+    tr2 = TTrainer(_mf_cfg(tmp_path, sparse, n_epoch=2), device="cpu")
+    tr2.train()
+    final = int(tr2.state.step)
+    step_fn = rec._step
+    assert rec.refresh() is True
+    assert rec._restored_step == final and rec._step is step_fn
+    after = rec.for_users(users, seen=seen)
+    assert not np.array_equal(after, before)
+    fresh = tserve.Recommender(_mf_cfg(tmp_path, sparse), serve_batch=16,
+                               device="cpu")
+    np.testing.assert_array_equal(after, fresh.for_users(users, seen=seen))
+    in_memory = tserve.Recommender(_mf_cfg(tmp_path, sparse),
+                                   tr2._eval_params(), serve_batch=16,
+                                   device="cpu")
+    np.testing.assert_array_equal(after,
+                                  in_memory.for_users(users, seen=seen))
+    out = io.StringIO()
+    tserve._serve_loop(rec, io.StringIO("!step\n!refresh\n"), out)
+    assert out.getvalue().split("\n")[:2] == [
+        f"!ok step {final}", f"!ok current step {final}"]
+
+
+def test_refuses_an_empty_train_dir(tmp_path):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        tserve.Recommender(_mf_cfg(tmp_path, True), device="cpu")
+    assert not os.path.exists(tmp_path / "t")   # nothing written there
+
+
+def test_serve_main_from_a_checkpoint(tmp_path):
+    """`python -m arec_torch.serve` restores, prints its banner and answers
+    the line protocol."""
+    from arec_torch.cli.main import main as cli_main
+
+    argv = ["--config", os.path.join(ROOT, "configs", "syn_mf.json")] + [
+        a for k, v in {"data.data_dir": tmp_path / "d",
+                       "data.syn_users": 200, "data.syn_items": 150,
+                       "data.syn_interactions": 4000, "model.dim": 8,
+                       "train.batch_size": 32, "train.num_sampled": 16,
+                       "train.max_steps": 16,
+                       "train.steps_per_checkpoint": 8,
+                       "train.compute_dtype": "float32",
+                       "train.train_dir": tmp_path / "t"}.items()
+        for a in ("--set", f"{k}={v}")]
+    assert cli_main(argv, device="cpu") == 0
+    out = io.StringIO()
+    assert tserve.main(argv, io.StringIO("3\n!step\nx\n!quit\n4\n"), out,
+                       device="cpu") == 0
+    lines = out.getvalue().strip().split("\n")
+    assert lines[0] == (f"!ok serving {tmp_path / 't'} step 16 (user ids on "
+                        f"stdin; !refresh / !step / !quit)")
+    rec = tserve.Recommender(load_config(parse_args(argv)), device="cpu")
+    assert lines[1] == "3\t" + ",".join(
+        map(str, rec.for_users([3])[0].tolist()))
+    assert lines[2] == "!ok step 16"
+    assert lines[3].startswith("!err ValueError")
+    assert len(lines) == 4

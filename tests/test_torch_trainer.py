@@ -1,0 +1,206 @@
+"""arec_torch's Trainer against arec's on the same config: the eval and
+save cadence (the metrics' steps, the checkpoint steps), and, on an
+arec-trained tiny model whose state is bridged in, `evaluate()` (Recall
+equal) and `recommend()` (ids equal up to ties, torch_topk_check); the
+config knobs it honours or refuses."""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from arec.config import Config as JConfig
+from arec.train.loop import Trainer as JTrainer
+from arec_torch import bridge
+from arec_torch.config import (
+    Config, DataConfig, MeshConfig, ModelConfig, TrainConfig,
+)
+from arec_torch.train.loop import Trainer
+from arec_torch.train.step import _leaves
+from torch_topk_check import assert_ids_equal_up_to_ties, ref_scores
+
+torch.set_num_threads(1)
+
+FAMILIES = {
+    "mf_dense": dict(model="mf", dim=16, dense_vocab_threshold=16),
+    "mf_sparse": dict(model="mf", dim=16, dense_vocab_threshold=16),
+    "lstm": dict(model="lstm", dim=16, max_seq_len=8,
+                 use_pallas_scan=False, dense_vocab_threshold=16),
+}
+
+
+def _cfg(tmp, family, train_dir):
+    return Config(
+        data=DataConfig(dataset="synthetic", data_dir=str(tmp / "d"),
+                        syn_users=300, syn_items=250, syn_interactions=8000),
+        model=ModelConfig(use_attributes=True, **FAMILIES[family]),
+        # 4 LSTM batches an epoch, 120 MF ones
+        train=TrainConfig(batch_size=64, num_sampled=32, n_epoch=12,
+                          max_steps=45, steps_per_checkpoint=10,
+                          save_every_evals=2, eval_batch_size=64,
+                          compute_dtype="float32",
+                          sparse_update=family == "mf_sparse",
+                          train_dir=str(tmp / train_dir)))
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def trained(request, tmp_path_factory):
+    """The same config trained by arec's Trainer and by the port's, and a
+    port Trainer holding arec's trained state (bridged)."""
+    family = request.param
+    tmp = tmp_path_factory.mktemp(family)
+    cfg = _cfg(tmp, family, "t_port")
+    jcfg = JConfig.from_json(_cfg(tmp, family, "t_arec").to_json())
+    jtr = JTrainer(jcfg)
+    jtr.train()
+    port = Trainer(cfg, device="cpu")
+    port.train()
+    port.close()
+    held = Trainer(_cfg(tmp, family, "t_held"), serve_only=True,
+                   device="cpu")
+    state = jax.tree.map(np.asarray, jtr.state)
+    held.state = (bridge.sparse_train_state_from_arec(state)
+                  if family == "mf_sparse"
+                  else bridge.train_state_from_arec(state))
+    return family, tmp, jtr, port, held
+
+
+def _metric_steps(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        return [json.loads(line)["step"] for line in f]
+
+
+def _ckpt_steps(train_dir):
+    return sorted(int(n) for n in os.listdir(os.path.join(train_dir, "ckpt"))
+                  if n.isdigit())
+
+
+def test_cadence_equals_arecs(trained):
+    """Evals every 10 steps, a save every 2nd eval, the final checkpoint
+    at max_steps, keep 3: the same steps on both sides."""
+    _, tmp, jtr, port, _ = trained
+    want = _metric_steps(jtr.cfg.train.train_dir)
+    assert want == [10, 20, 30, 40, 45]
+    assert _metric_steps(port.cfg.train.train_dir) == want
+    assert _ckpt_steps(port.cfg.train.train_dir) == _ckpt_steps(
+        jtr.cfg.train.train_dir) == [20, 40, 45]
+    assert int(port.state.step) == int(jtr.state.step) == 45
+
+
+def test_bridged_state_holds_arecs_values(trained):
+    family, _, jtr, _, held = trained
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(
+        jtr.state.params)]
+    got = _leaves(held.state.params)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_evaluate_matches_arec(trained):
+    _, _, jtr, _, held = trained
+    want = jtr.evaluate(exact=True)
+    assert held.evaluate(exact=True) == want
+    assert held.evaluate() == jtr.evaluate()
+
+
+def _port_scores(tr):
+    """float64 masked scores of every eval row, from the port's queries."""
+    from arec_torch.data.dataset import eval_batches
+    params = tr._eval_params()
+    with torch.no_grad():
+        v, b = (x.float().numpy() for x in tr._item_latents(params))
+        out = []
+        L = tr.spec.pack_len if tr.is_seq else 0
+        for batch in eval_batches(tr.ds, tr.cfg.train.eval_batch_size,
+                                  max_seq_len=L):
+            tb, seen = tr._stage_eval(batch)
+            q = tr._query_fn(params, tb).numpy()
+            ok = batch["valid"] > 0
+            out.append(ref_scores(q[ok], v, b, seen.numpy()[ok]))
+    return np.concatenate(out)
+
+
+def test_recommend_matches_arec(trained, tmp_path):
+    _, _, jtr, _, held = trained
+    want = jtr.recommend(out_path=str(tmp_path / "arec.tsv"))
+    got = held.recommend(out_path=str(tmp_path / "port.tsv"))
+    assert [u for u, _ in got] == [u for u, _ in want]
+    got_ids = np.array([r for _, r in got])
+    want_ids = np.array([r for _, r in want])
+    scores = _port_scores(held)
+    want_vals = np.take_along_axis(scores, want_ids, axis=1)
+    assert_ids_equal_up_to_ties(got_ids, want_vals, want_ids, scores)
+    lines = (tmp_path / "port.tsv").read_text().splitlines()
+    assert lines == [f"{u}\t{','.join(map(str, r))}" for u, r in got]
+    assert len(lines) == len((tmp_path / "arec.tsv").read_text()
+                             .splitlines())
+
+
+# ---------------------------------------------------------------------------
+# knobs
+# ---------------------------------------------------------------------------
+
+def _tiny(tmp_path, **train):
+    return Config(
+        data=DataConfig(syn_users=120, syn_items=90, syn_interactions=2400,
+                        data_dir=str(tmp_path / "data")),
+        model=ModelConfig(model="mf", dim=8),
+        train=TrainConfig(batch_size=32, compute_dtype="float32",
+                          **{"train_dir": str(tmp_path / "t"), **train}))
+
+
+def test_steps_per_dispatch_equals_single_steps(tmp_path):
+    """K = 4 runs four single steps: bit for bit the K = 1 run, across an
+    epoch boundary (71 batches an epoch) and a tail shorter than K."""
+    states = []
+    for k in (1, 4):
+        tr = Trainer(_tiny(tmp_path, steps_per_dispatch=k, max_steps=74,
+                           n_epoch=2, steps_per_checkpoint=8,
+                           sparse_update=True,
+                           train_dir=str(tmp_path / f"k{k}")),
+                     device="cpu")
+        tr.train()
+        states.append(tr.state)
+        assert _metric_steps(str(tmp_path / f"k{k}")) == list(
+            range(8, 73, 8)) + [74]
+    for a, b in zip(_leaves(states[0]._asdict()), _leaves(states[1]._asdict())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("train,err,match", [
+    (dict(steps_per_dispatch=8, steps_per_checkpoint=12), ValueError,
+     "multiple of steps_per_dispatch"),
+    (dict(eval_recall_target=0.95), NotImplementedError, "A4"),
+    (dict(batch_ht=True), ValueError, "batch_ht"),
+])
+def test_refused_knobs(tmp_path, train, err, match):
+    with pytest.raises(err, match=match):
+        Trainer(_tiny(tmp_path, **train), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["mf", "lstm"])
+def test_refuses_a_device_mesh(tmp_path, model):
+    cfg = _tiny(tmp_path)
+    cfg = cfg.replace(model=ModelConfig(model=model, dim=8),
+                      mesh=MeshConfig(data=2, model=4))
+    with pytest.raises(NotImplementedError, match="A7"):
+        Trainer(cfg, device="cpu")
+
+
+def test_recommend_refuses_approximate_serving(tmp_path):
+    tr = Trainer(_tiny(tmp_path, serve_recall_target=0.9), device="cpu")
+    with pytest.raises(NotImplementedError, match="A4"):
+        tr.recommend()
+
+
+def test_serve_only_trainer_allocates_nothing_and_cannot_train(tmp_path):
+    tr = Trainer(_tiny(tmp_path, sparse_update=True), serve_only=True,
+                 device="cpu")
+    assert all(t.is_meta for t in _leaves(tr.state._asdict()))
+    assert not os.path.exists(tmp_path / "t" / "metrics.jsonl")
+    with pytest.raises(RuntimeError, match="cannot train"):
+        tr.train()
