@@ -137,18 +137,11 @@ class TrainConfig:
                                 # host (a uniform strided subsample — the
                                 # final/reported eval should use 0)
     eval_recall_target: float = 1.0  # <1 opts periodic eval into the
-                                # approx_max_k selection (~17× at V=1.3M,
-                                # measured); the graded metric stays at the
-                                # exact default. Round-5 correction of the
-                                # earlier bit-identity claim: on CONVERGED
-                                # V=1.3M checkpoints the 0.95-target
-                                # top-30 overlaps exact by ~94% (0.2% of
-                                # score mass) and the measured Recall@30
-                                # under-read is ~1% relative — report
-                                # converged metrics via the
-                                # exact-subsample confirm protocol
-                                # (tools/eval_ckpt.py; BASELINE.md
-                                # round-5 agreement section)
+                                # approximate top-k
+                                # (retrieval.mips.approx_max_k); the
+                                # reported metric, evaluate(exact=True),
+                                # stays exact. Its cost and overlap with
+                                # the exact lists on the H100: PERF.md
     serve_score_mem_mb: int = 512  # serving-path score-chunk memory budget
                                 # (retrieval re-reads the item matrix once
                                 # per query chunk, so a bigger budget cuts
@@ -159,15 +152,12 @@ class TrainConfig:
                                 # tools/ab_eval_serve.py --score-mem);
                                 # raise it when serving HBM headroom allows)
     serve_recall_target: float = 1.0  # recommend-mode selection: 1.0 = exact
-                                # top-k; <1 = approx_max_k serving mode
-                                # (~10x qps at V=300k, ~25x at V=1.3M).
-                                # Measured on converged V=1.3M params
-                                # (round 5): ~94% top-30 overlap with
-                                # exact, 0.19% mean score-mass gap, and
-                                # the dial QUANTIZES (0.95/0.98/0.99
-                                # identical at that shape) — the choice
-                                # is effectively binary. Training eval is
-                                # always exact regardless.
+                                # top-k; <1 = the approximate top-k
+                                # (retrieval.mips.approx_max_k over
+                                # top-(k+S) candidates). Training's
+                                # periodic eval follows eval_recall_target
+                                # instead. Its cost and overlap on the
+                                # H100: PERF.md
     serve_latents_dtype: str = "compute"  # {compute, float32} residency of
                                 # the eval/serving all-item latent matrix.
                                 # "compute" pre-casts it to compute_dtype

@@ -6,9 +6,10 @@ families (SURVEY.md §3.4); here a PreparedDataset round-trips through one
 and keyed by a config fingerprint, so prep runs once (deterministic,
 golden-hashable — SURVEY.md §7 build order step 1).
 
-The port's copy of `arec/data/io.py`: the same fingerprint and the same npz
-layout, so a cache prepared by either package loads in the other. Only the
-synthetic generator is ported; ML-1M and XING prep raise until their slice.
+The port's copy of `arec/data/io.py`: the same fingerprint, the same npz
+layout and the same prep dispatch (the synthetic generator, ML-1M and
+XING from their raw files), so a cache prepared by either package loads in
+the other.
 """
 
 from __future__ import annotations
@@ -114,10 +115,12 @@ def load_or_prepare(cfg: DataConfig) -> PreparedDataset:
     if cfg.dataset == "synthetic":
         from arec_torch.data.synthetic import generate
         ds = generate(cfg)
-    elif cfg.dataset in ("ml1m", "xing"):
-        raise NotImplementedError(
-            f"{cfg.dataset} prep is not ported yet (the raw-data prep slice); "
-            f"prepare it with arec once, or use the synthetic generator")
+    elif cfg.dataset == "ml1m":
+        from arec_torch.data.movielens import prepare_ml1m
+        ds = prepare_ml1m(cfg)
+    elif cfg.dataset == "xing":
+        from arec_torch.data.xing import prepare_xing
+        ds = prepare_xing(cfg)
     else:
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
 

@@ -9,7 +9,7 @@ on the `meta` device, so no random tables or optimizer state are built),
 then item latents (pre-cast to the compute dtype) → per batch `_query_fn`
 → the sequence family's `seq_final_state_full` (the carried-state
 segmented scan, through the CUDA LSTM or GRU kernel with
-`use_pallas_scan`) or MF's `mf_user_latents` → seen-masked exact top-k.
+`use_pallas_scan`) or MF's `mf_user_latents` → seen-masked top-k.
 Requests are padded to a fixed batch of `serve_batch`. `refresh()` follows
 training in place: the newest checkpoint re-restored into the live object,
 the old state freed first, so residency never doubles.
@@ -17,8 +17,9 @@ the old state freed first, so residency never doubles.
 Weights may also be handed in as an arec-layout param tree (numpy or
 torch; see `arec_torch.bridge`); such a Recommender follows no checkpoint.
 An MF tree may be the sparse step's packed one (tables [V, 2D]); it is
-read through `unpack_params`, as arec's `Trainer._eval_params` does. The
-approximate top-k mode (serve_recall_target < 1) raises (ROADMAP A4).
+read through `unpack_params`, as arec's `Trainer._eval_params` does. With
+serve_recall_target < 1 the top-k is the approximate one of
+`retrieval.mips` (`approx_max_k` over top-(k+S) candidates), as in arec.
 """
 
 from __future__ import annotations

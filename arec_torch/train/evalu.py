@@ -24,7 +24,8 @@ def topk_with_mask(query, item_latents, item_bias, seen, k: int = 30,
     production V goes through the query-blocked
     `arec_torch.retrieval.mips.blocked_topk_mips`, whose peak score memory
     is bounded by `score_mem_mb`. The two are exactly equal.
-    recall_target < 1 (arec's approx_max_k mode) is not ported."""
+    recall_target < 1 (arec's approx_max_k mode) always takes the blocked
+    path, which then selects approximately (`mips.approx_max_k`)."""
     if recall_target < 1.0 or item_latents.shape[0] > BLOCKED_EVAL_MIN_V:
         from arec_torch.retrieval.mips import blocked_topk_mips
         return blocked_topk_mips(query, item_latents, item_bias, seen, k=k,

@@ -26,8 +26,9 @@ Config knobs arec's Trainer reads, each honoured or refused:
   compact_table_grads     served by `engine.dense_lookup`, whose
                           `embedding` backward already groups duplicate
                           ids (the engine docstring).
-  eval_recall_target < 1  raises (the approximate top-k, ROADMAP A4);
-                          so does serve_recall_target < 1, at recommend().
+  eval_recall_target < 1  periodic eval through the approximate top-k
+                          (`retrieval.mips.approx_max_k`), as arec's;
+                          serve_recall_target < 1 serves through it.
   a mesh (data·model > 1) raises (ROADMAP A7), in the specs' from_config.
 """
 
@@ -43,7 +44,7 @@ from arec_torch import resolve_device
 from arec_torch.config import Config
 from arec_torch.data.dataset import eval_batches, mf_batches, seq_batches
 from arec_torch.data.io import load_or_prepare
-from arec_torch.data.prefetch import prefetch, to_device
+from arec_torch.data.prefetch import copy_batch, prefetch, to_device
 from arec_torch.losses.sampling import make_pop
 from arec_torch.models import mf as mf_mod
 from arec_torch.models import seq as seq_mod
@@ -103,15 +104,12 @@ def _query_fn(spec, params, item_dev, user_dev, batch):
 
 
 def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int):
-    """Per-batch serving step: queries → seen-masked exact top-k. Like
-    arec's single-device step it passes no compute dtype to the top-k, so
-    the scores take bf16 operands even when the model computes in f32."""
+    """Per-batch serving step: queries → seen-masked top-k, exact or, with
+    serve_recall_target < 1, approximate. Like arec's single-device step
+    it passes no compute dtype to the top-k, so the scores take bf16
+    operands even when the model computes in f32."""
     target = cfg.train.serve_recall_target
     mem = cfg.train.serve_score_mem_mb
-    if target < 1.0:
-        raise NotImplementedError(
-            "train.serve_recall_target < 1 (approximate top-k) is not "
-            "ported (ROADMAP A4); serve with 1.0")
 
     def step(params, v, b, batch, seen):
         q = _query_fn(spec, params, item_dev, user_dev, batch)
@@ -132,10 +130,6 @@ class Trainer:
         self.cfg = cfg
         self.serve_only = serve_only
         t = cfg.train
-        if t.eval_recall_target < 1.0:
-            raise NotImplementedError(
-                "train.eval_recall_target < 1 (approximate top-k eval) is "
-                "not ported (ROADMAP A4); evaluate with 1.0")
         self.is_seq = cfg.model.model == "lstm"
         self.ds, self.spec, self.item_dev, self.user_dev = build_model(
             cfg, self.device)
@@ -234,8 +228,10 @@ class Trainer:
                          batch)
 
     def _stage_eval(self, batch):
-        """An eval batch and its users' seen slab, on the device."""
-        tb = to_device(self.device)(batch)
+        """An eval batch and its users' seen slab, on the device. The copy
+        is synchronous: eval batches are staged on the calling thread, one
+        at a time, with no step queued behind which to hide it."""
+        tb = copy_batch(batch, self.device)
         seen = torch.from_numpy(self.ds.seen_items[batch["user"]]).to(
             self.device)
         return tb, seen
@@ -243,7 +239,8 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, k: int | None = None, exact: bool = False) -> float:
         """Valid Recall@K with seen-item masking. exact=True overrides the
-        periodic-eval subsample (train.eval_max_batches): the number to
+        periodic-eval cost knobs (train.eval_max_batches subsampling and
+        the eval_recall_target approximate top-k): the number to
         report."""
         t = self.cfg.train
         k = k or t.eval_topk
@@ -252,12 +249,14 @@ class Trainer:
         hits = total = 0.0
         n = 0
         cap = 0 if exact else t.eval_max_batches
+        target = 1.0 if exact else t.eval_recall_target
         L = self.spec.pack_len if self.is_seq else 0
         for batch in eval_batches(self.ds, t.eval_batch_size,
                                   max_seq_len=L):
             tb, seen = self._stage_eval(batch)
             h, c = recall_hits(self._query_fn(params, tb), v, b, seen,
-                               tb["pos_item"], tb["valid"], k=k)
+                               tb["pos_item"], tb["valid"], k=k,
+                               recall_target=target)
             hits += float(h)
             total += float(c)
             n += 1
@@ -382,6 +381,8 @@ class Trainer:
 
         # unlike arec, a run restored at max_steps takes no further step
         stop = bool(t.max_steps and steps_done >= t.max_steps)
+        depth = max(2, self.dispatch_k + 1)
+        stage = to_device(self.device, depth)   # one pinned ring per run
         for epoch in range(self.start_epoch, t.n_epoch):
             if stop:
                 break
@@ -391,9 +392,8 @@ class Trainer:
                 batches = itertools.islice(batches, skip, None)
                 pos["step_in_epoch"] = skip
                 skip = 0
-            with contextlib.closing(prefetch(
-                    batches, depth=max(2, self.dispatch_k + 1),
-                    transform=to_device(self.device))) as it:
+            with contextlib.closing(prefetch(batches, depth=depth,
+                                             transform=stage)) as it:
                 for tb in it:
                     profiler.on_step(steps_done)
                     self.state, m = self.step_fn(
@@ -411,7 +411,7 @@ class Trainer:
                                           best_recall),
                            self.cfg.to_json())
             self.ckpt.drain()
-        approx = bool(t.eval_max_batches)
+        approx = bool(t.eval_max_batches) or t.eval_recall_target < 1.0
         final_recall = self.evaluate()
         if approx:
             print("[eval] WARNING: final recall_at_k is APPROXIMATE "

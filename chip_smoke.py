@@ -59,7 +59,27 @@
    --out`; c4's LSTM through the Trainer (16 steps, one 4 GB save) and
    served from its checkpoint. Launches of each kernel are counted over
    these runs.
-8. Prints one `{"kernels": [...]}` JSON line and, last, the
+8. The host input path at c4's shape on the twin: `seq_batches` and
+   `eval_batches` packed by the C++ packer against the numpy twin (equal
+   outputs, ms a batch each); the old pageable `.to()` against the pinned
+   copy-stream staging of `to_device` for MF's and c4's batches; how long
+   each copy call blocks its thread behind a 10 ms GPU spin; 64 batches
+   staged through `prefetch` under a slower consumer, each equal to its
+   numpy source.
+9. The approximate top-k at serving width: syn_xing_full's MF
+   `for_users` (256 users, V = 1,304,126) and c4's LSTM batch, each with
+   serve_recall_target 1.0 and 0.95: batch latency, device busy, the
+   reduction's (R, l) and the top-30 overlap with the exact lists (MF:
+   at least 0.90); no seen id served.
+10. The real configurations from raw dumps written in the published
+   layouts under _data/ (deleted at the end): a RecSys'17 XING dump
+   (1,304,126 items) prepared into configs/c4_lstm_attr_xing.json's
+   dataset (V 50,000 after truncation) and c4 trained 16 steps through
+   `cli.main.main`, Recall@30 with eval_recall_target 1.0 and 0.95, 8
+   requests served with serve_recall_target 1.0 and 0.95; an ML-1M
+   GroupLens dump at the published counts prepared, c2 trained 16 steps
+   and 256 users served.
+11. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -882,7 +902,8 @@ def load_c4(twin, cuts, cell="lstm"):
 
 def device_breakdown(what, fn):
     """Run fn() once under torch.profiler and print device busy time, the
-    idle share of the wall time and the top kernels by device time."""
+    idle share of the wall time and the top kernels by device time;
+    returns (busy ms, wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -907,6 +928,7 @@ def device_breakdown(what, fn):
             f"{rs_ms / busy_ms:.4f} of device busy")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
+    return busy_ms, wall_ms
 
 
 def scan_counters(cell):
@@ -1956,12 +1978,13 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in host:
-            put(b)
+            put(b).wait()
         torch.cuda.synchronize()
         h2d_ms = (time.perf_counter() - t0) / len(host) * 1e3
         log(f"  MF input path alone, 16 batches of {tc.batch_size}: "
             f"mf_batches {pack_ms:.4f} ms a batch (epoch permutation "
-            f"included), to_device {h2d_ms:.4f} ms a batch")
+            f"included), to_device (pinned, copy stream) {h2d_ms:.4f} ms a "
+            f"batch")
 
         # ---- (c) serving from the checkpoint -------------------------------
         users = ds.valid_users[:256].astype(np.int32)
@@ -2088,6 +2111,555 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
     return launches
 
 
+# ---- the host input path, raw-data prep and the approximate top-k -------
+
+# A GPU spin of `ms` milliseconds: torch.cuda._sleep counts cycles, at
+# most 2e6 a millisecond on this card (1.98 GHz)
+SPIN_CYCLES_PER_MS = 2e6
+INPUT_BATCHES = 32       # batches timed through each packer and each copy
+STAGED_BATCHES = 64      # staged batches checked against their sources
+
+
+def host_ms(fn, items) -> float:
+    """Mean host ms of fn(item) over `items` (after one warm-up call)."""
+    fn(items[0])
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    return (time.perf_counter() - t0) / len(items) * 1e3
+
+
+def input_path_phase(dev, twin=TWIN, cuts=CUTS, batches=INPUT_BATCHES,
+                     staged=STAGED_BATCHES):
+    """The host input path at c4's shape on the XING twin: `seq_batches`
+    and `eval_batches` (L 50) packed by the numpy twin and by the C++
+    packer (outputs equal); the old pageable `.to()` (inlined here as a
+    yardstick) against the pinned copy-stream staging for MF's
+    8192-row batch and c4's batch; how long each copy call blocks its
+    thread behind a 10 ms GPU spin queued on the consumer's stream; and
+    `staged` batches through `prefetch` with a consumer slower than the
+    worker, each equal to its numpy source."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from arec_torch import native
+    from arec_torch.data.dataset import eval_batches, seq_batches
+    from arec_torch.data.prefetch import prefetch, to_device
+
+    cfg, ds, _ = load_c4(twin, cuts)
+    tc, L, pad = cfg.train, cfg.model.max_seq_len, ds.num_items
+    t0 = time.perf_counter()
+    train = list(itertools.islice(
+        seq_batches(ds, tc.batch_size, L, tc.seed, 0), batches))
+    seq_ms = (time.perf_counter() - t0) / len(train) * 1e3
+    evals = list(itertools.islice(
+        eval_batches(ds, tc.eval_batch_size, max_seq_len=L), batches))
+    assert len(train) == len(evals) == batches
+    for kind, users in (("train", [b["user"] for b in train]),
+                        ("eval", [b["user"].astype(np.int32)
+                                  for b in evals])):
+        cpp = getattr(native, f"pack_{kind}_sequences")
+        twin_np = getattr(native, f"pack_{kind}_sequences_np")
+        got = [cpp(ds.hist_items, ds.hist_lengths, u, L, pad) for u in users]
+        want = [twin_np(ds.hist_items, ds.hist_lengths, u, L, pad)
+                for u in users]
+        assert all(np.array_equal(g, w) for gs, ws in zip(got, want)
+                   for g, w in zip(gs, ws)), kind
+        cpp_ms = host_ms(lambda u: cpp(ds.hist_items, ds.hist_lengths, u, L,
+                                       pad), users)
+        np_ms = host_ms(lambda u: twin_np(ds.hist_items, ds.hist_lengths, u,
+                                          L, pad), users)
+        log(f"(a) pack_{kind}_sequences, {len(users)} batches of "
+            f"{len(users[0])} x L {L}: C++ {cpp_ms:.4f} ms a batch, numpy "
+            f"twin {np_ms:.4f} ms ({np_ms / cpp_ms:.1f}x); outputs equal")
+    log(f"    seq_batches through the C++ packer: {seq_ms:.4f} ms a batch "
+        f"over {len(train)} (the epoch's user permutation included)")
+
+    rng = np.random.default_rng(3)
+    mf = [{"user": rng.integers(0, 1_504_123, 8192).astype(np.int32),
+           "pos_item": rng.integers(0, 1_304_126, 8192).astype(np.int32)}
+          for _ in range(batches)]
+
+    def pageable(b):        # the copy the port made before: .to() per leaf
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in b.items()}
+
+    for name, host in (("MF batch 8192 (user, pos_item)", mf),
+                       (f"c4 batch {tc.batch_size} x {L}", train)):
+        stager = to_device(dev)
+        times = {}
+        for how, fn in (("pageable", pageable),
+                        ("pinned", lambda b: stager(b).wait()),
+                        ("pinned again", lambda b: stager(b).wait()),
+                        ("pageable again", pageable)):
+            torch.cuda.synchronize()
+            times[how] = host_ms(fn, host)
+            torch.cuda.synchronize()
+        log(f"(a) to_device, {name}, ms a batch over {len(host)} "
+            f"(host time of the calls, in the order shown): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+    # what each copy call does to its thread with a step queued before it
+    b = train[0]
+    stager = to_device(dev)
+    for _ in range(len(stager.ring)):              # every slot allocated
+        stager(b).wait()
+    spin_done = torch.cuda.Event(enable_timing=True)
+    spin_start = torch.cuda.Event(enable_timing=True)
+    blocked = {}
+    for how in ("pageable", "pinned"):
+        torch.cuda.synchronize()
+        spin_start.record()
+        torch.cuda._sleep(int(10 * SPIN_CYCLES_PER_MS))
+        spin_done.record()
+        t0 = time.perf_counter()
+        out = pageable(b) if how == "pageable" else stager(b)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        waited = spin_done.query()
+        if how == "pinned":
+            out = out.wait()
+        torch.cuda.synchronize()
+        for k in b:
+            assert np.array_equal(out[k].cpu().numpy(), b[k]), (how, k)
+        blocked[how] = (call_ms, waited, spin_start.elapsed_time(spin_done))
+    for how, (call_ms, waited, spin_ms) in blocked.items():
+        log(f"(a) behind a {spin_ms:.3f} ms GPU spin on the consumer's "
+            f"stream, the {how} copy call blocked its thread {call_ms:.4f} "
+            f"ms; the spin had {'ended' if waited else 'not ended'} when "
+            f"it returned")
+    assert not blocked["pinned"][1], "the pinned copy waited for the spin"
+
+    src = list(itertools.islice(
+        seq_batches(ds, tc.batch_size, L, tc.seed, 1), staged))
+    outs = []
+    t0 = time.perf_counter()
+    for tb in prefetch(iter(src), depth=2, transform=to_device(dev, 2)):
+        torch.cuda._sleep(int(0.5 * SPIN_CYCLES_PER_MS))    # the step
+        outs.append({k: v.clone() for k, v in tb.items()})
+        del tb
+        time.sleep(0.002)                # the consumer is the slower side
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    assert len(outs) == len(src) == staged
+    for got, want in zip(outs, src):
+        for k in want:
+            assert np.array_equal(got[k].cpu().numpy(), want[k]), k
+    log(f"(a) {staged} batches staged through prefetch (depth 2, a 0.5 ms "
+        f"spin and 2 ms of host sleep a step, {wall_s:.2f} s): each equals "
+        f"its numpy source")
+
+
+def _zipf_ids(rng, n, size, a):
+    """`size` draws from range(n), the r-th most popular with weight
+    1/(r+1)^a, popularity ranks shuffled over the ids."""
+    import numpy as np
+    w = 1.0 / np.arange(1, n + 1) ** a
+    return rng.permutation(n)[rng.choice(n, size=size, p=w / w.sum())]
+
+
+def _id_lists(rng, n, vocab, lo, hi):
+    """n comma-separated lists of lo..hi ids below `vocab`."""
+    import numpy as np
+    lens = rng.integers(lo, hi + 1, n)
+    toks = rng.integers(0, vocab, int(lens.sum())).astype(str)
+    ends = np.cumsum(lens)
+    return [",".join(toks[e - k:e]) for e, k in zip(ends, lens)]
+
+
+def _write_tsv(path, header, columns):
+    with open(path, "w") as f:
+        f.write("\t".join(header) + "\n")
+        f.write("\n".join("\t".join(r) for r in zip(*columns)) + "\n")
+
+
+# The RecSys'17 dump's layout (tab-separated, a header row, multi-valued
+# fields comma-separated), at syn_xing_full's item count. Users and
+# interaction rows are cut so that the prep (arec's Python loops, ported
+# as they are) stays near a minute on the card's host.
+XING_RAW = {"items": 1_304_126, "users": 400_000,
+            "interactions": 1_500_000}
+XING_RAW_CUTS = ("users.csv: about 1.5M users in the published dump -> "
+                 "400,000; interactions.csv: hundreds of millions of rows "
+                 "(impressions included) -> 1,500,000")
+# interaction types 0-5 (impression, click, bookmark, reply, delete,
+# recruiter interest); arec keeps 1-3
+XING_TYPE_SHARES = (0.35, 0.45, 0.08, 0.05, 0.05, 0.02)
+
+
+def write_xing_raw(d, items, users, interactions, seed=0):
+    """A raw XING dump in the RecSys'17 layout under `d`: items.csv,
+    users.csv, interactions.csv (raw ids sparse, item and user activity
+    Zipf-distributed, repeated (user, item) pairs, every interaction
+    type)."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    item_ids = rng.permutation(3 * items)[:items] + 1
+    user_ids = rng.permutation(2 * users)[:users] + 1
+
+    def cat(n, m):
+        return rng.integers(0, m, n).astype(str)
+    countries = np.array(["de", "at", "ch", "non_dach"])
+    _write_tsv(os.path.join(d, "items.csv"),
+               ("id", "title", "career_level", "discipline_id",
+                "industry_id", "country", "is_payed", "region", "latitude",
+                "longitude", "employment", "tags", "created_at"),
+               (item_ids.astype(str), _id_lists(rng, items, 100_000, 1, 6),
+                cat(items, 7), cat(items, 24), cat(items, 24),
+                countries[rng.integers(0, 4, items)], cat(items, 2),
+                cat(items, 17),
+                np.round(rng.uniform(46, 55, items), 1).astype(str),
+                np.round(rng.uniform(6, 15, items), 1).astype(str),
+                cat(items, 6), _id_lists(rng, items, 100_000, 0, 8),
+                rng.integers(1_480_000_000, 1_487_000_000, items).astype(
+                    str)))
+    _write_tsv(os.path.join(d, "users.csv"),
+               ("id", "jobroles", "career_level", "discipline_id",
+                "industry_id", "country", "region",
+                "experience_n_entries_class", "experience_years_experience",
+                "experience_years_in_current", "edu_degree",
+                "edu_fieldofstudies", "wtcj", "premium"),
+               (user_ids.astype(str), _id_lists(rng, users, 50_000, 0, 8),
+                cat(users, 7), cat(users, 24), cat(users, 24),
+                countries[rng.integers(0, 4, users)], cat(users, 17),
+                cat(users, 4), cat(users, 7), cat(users, 7), cat(users, 4),
+                cat(users, 10), cat(users, 2), cat(users, 2)))
+    _write_tsv(os.path.join(d, "interactions.csv"),
+               ("user_id", "item_id", "interaction_type", "created_at"),
+               (user_ids[_zipf_ids(rng, users, interactions, 0.7)].astype(
+                   str),
+                item_ids[_zipf_ids(rng, items, interactions, 1.0)].astype(
+                    str),
+                rng.choice(6, interactions, p=XING_TYPE_SHARES).astype(str),
+                np.sort(rng.integers(1_484_000_000, 1_487_000_000,
+                                     interactions)).astype(str)))
+
+
+# ML-1M's published counts (GroupLens README): 6,040 users, movie ids to
+# 3,952, 1,000,209 ratings, every user with at least 20
+ML1M_RAW = {"users": 6_040, "movies": 3_952, "ratings": 1_000_209}
+ML1M_MAX_PER_USER = 2_314          # ML-1M's most active user
+ML1M_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy",
+               "Crime", "Documentary", "Drama", "Fantasy", "Film-Noir",
+               "Horror", "Musical", "Mystery", "Romance", "Sci-Fi",
+               "Thriller", "War", "Western")
+
+
+def write_ml1m_raw(d, users, movies, ratings, seed=0):
+    """A raw ML-1M dump in the GroupLens `::` layout under `d`:
+    users.dat, movies.dat, ratings.dat (≥ 20 ratings a user, no repeated
+    (user, movie) pair, timestamps increasing per user)."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ages = np.array([1, 18, 25, 35, 45, 50, 56])
+    with open(os.path.join(d, "users.dat"), "w", encoding="latin-1") as f:
+        f.write("\n".join(
+            f"{u}::{'FM'[rng.integers(0, 2)]}::{ages[rng.integers(0, 7)]}::"
+            f"{rng.integers(0, 21)}::{rng.integers(0, 100_000):05d}"
+            for u in range(1, users + 1)) + "\n")
+    with open(os.path.join(d, "movies.dat"), "w", encoding="latin-1") as f:
+        f.write("\n".join(
+            f"{m}::Movie {m} ({rng.integers(1919, 2001)})::"
+            + "|".join(sorted(set(rng.choice(ML1M_GENRES,
+                                             rng.integers(1, 4)))))
+            for m in range(1, movies + 1)) + "\n")
+    # ratings a user: 20 + a heavy-tailed share of the rest, at most
+    # ML1M_MAX_PER_USER, summing to `ratings`
+    cap = min(ML1M_MAX_PER_USER, movies)
+    weight = rng.lognormal(0.0, 1.0, users)
+    counts = 20 + rng.multinomial(ratings - 20 * users, weight / weight.sum())
+    while (over := np.maximum(counts - cap, 0)).any():
+        counts -= over
+        room = weight * (counts < cap)
+        counts += rng.multinomial(over.sum(), room / room.sum())
+    pop = 1.0 / np.arange(1, movies + 1) ** 0.8
+    pop = pop[rng.permutation(movies)] / pop.sum()
+    rows = []
+    t = 956_703_932
+    for u, n in enumerate(counts, 1):
+        ms = rng.choice(movies, size=n, replace=False, p=pop) + 1
+        stars = rng.integers(1, 6, n)
+        ts = t + np.sort(rng.integers(0, 10_000_000, n))
+        rows.append("\n".join(f"{u}::{m}::{s}::{x}"
+                              for m, s, x in zip(ms, stars, ts)))
+    with open(os.path.join(d, "ratings.dat"), "w", encoding="latin-1") as f:
+        f.write("\n".join(rows) + "\n")
+    assert counts.sum() == ratings
+
+
+def approx_overlap(exact, approx):
+    """Mean share of each exact top-k list that the approximate list
+    holds."""
+    import numpy as np
+    k = exact.shape[1]
+    return float(np.mean([len(set(e.tolist()) & set(a.tolist())) / k
+                          for e, a in zip(exact, approx)]))
+
+
+APPROX_TARGET = 0.95
+APPROX_MIN_OVERLAP = 0.90     # MF at V = 1.3M, seeded random weights
+
+
+def serve_compare(what, make, call, seen, reps=5):
+    """One request batch served by the exact and the approximate top-k
+    (`make(target)` builds the Recommender, `call(rec)` serves the batch):
+    batch latency (median host ms of `reps` synchronised calls), device
+    busy, the approximate path's (R, l) and the mean top-k overlap with
+    the exact lists. No list may hold a seen id. Returns the overlap."""
+    import numpy as np
+    import torch
+    from arec_torch.retrieval.mips import approx_reduction_size
+    from arec_torch.serve import _auto_width
+
+    out = {}
+    for target in (1.0, APPROX_TARGET):
+        rec = make(target)
+        ids = call(rec)                               # warm-up
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ids = call(rec)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        busy, _ = device_breakdown(f"{what}, recall_target {target}",
+                                   lambda: call(rec))
+        for row, s in zip(ids, seen):
+            assert len(set(row.tolist())) == rec.k and (row >= 0).all()
+            assert not set(row.tolist()) & set(s), "a seen id was served"
+        out[target] = (ids, float(np.median(ms)), busy)
+        V, k = rec._vb[0].shape[0], rec.k
+        del rec
+    width = _auto_width(seen)
+    r, l = approx_reduction_size(V, k + width, APPROX_TARGET)
+    overlap = approx_overlap(out[1.0][0], out[APPROX_TARGET][0])
+    log(f"(d) {what}: V {V}, k {k}, seen slab {width} -> "
+        f"{min(k + width, V)} candidates; recall_target 1.0: batch "
+        f"{out[1.0][1]:.3f} ms (median of {reps}), device busy "
+        f"{out[1.0][2]:.3f} ms; {APPROX_TARGET}: batch "
+        f"{out[APPROX_TARGET][1]:.3f} ms, device busy "
+        f"{out[APPROX_TARGET][2]:.3f} ms, R {r}, l {l}; mean top-{k} "
+        f"overlap with the exact lists {overlap:.4f}")
+    torch.cuda.synchronize()
+    return overlap
+
+
+def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
+                      c4_cuts=CUTS):
+    """The approximate top-k at serving width: syn_xing_full's MF
+    `for_users` (256 users with their train items as seen lists, V =
+    1,304,126) and c4's LSTM serving batch (8 requests padded to 256),
+    each with serve_recall_target 1.0 and 0.95, seeded random weights.
+    The MF overlap must reach APPROX_MIN_OVERLAP. Returns the LSTM
+    forward's launches."""
+    import numpy as np
+    import torch
+    from arec_torch.models.mf import MFSpec, init_mf
+    from arec_torch.models.seq import SeqSpec, init_seq
+    from arec_torch.serve import Recommender
+    from arec_torch.train.sparse import pack_tables, table_paths
+
+    def with_target(cfg, target):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, serve_recall_target=target))
+
+    cfg, ds, _ = load_mf(sets, cuts)
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    params = pack_tables(
+        init_mf(torch.Generator(device=dev).manual_seed(0), spec),
+        table_paths(False, spec))
+    rng = np.random.default_rng(2)
+    users = rng.choice(np.flatnonzero(ds.seen_lengths > 0), 256,
+                       replace=False).astype(np.int32)
+    seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist() for u in users]
+    overlap = serve_compare(
+        "MF for_users, 256 users",
+        lambda t: Recommender(with_target(cfg, t), params, serve_batch=256,
+                              device=dev),
+        lambda rec: rec.for_users(users, seen=seen), seen)
+    assert overlap >= APPROX_MIN_OVERLAP, (overlap, APPROX_MIN_OVERLAP)
+    del params
+    free()
+
+    fwd = scan_counters("lstm")[0]["lstm_scan_fwd"]
+    cfg, ds, _ = load_c4(twin, c4_cuts)
+    spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    params = init_seq(torch.Generator(device=dev).manual_seed(0), spec)
+    rng = np.random.default_rng(1)
+    hists = [rng.integers(0, spec.vocab, n).tolist()
+             for n in (5, 12, 30, 49, 50, 120, 20, 1)]
+    fwd.launches = 0                                 # ---- the main path
+    serve_compare(
+        "c4 LSTM from_histories, 8 requests padded to 256",
+        lambda t: Recommender(with_target(cfg, t), params, serve_batch=256,
+                              device=dev),
+        lambda rec: rec.from_histories(hists), hists)
+    launches = fwd.launches                          # ---- read just after
+    assert launches > 0
+    return {"lstm_scan_fwd": launches}
+
+
+def raw_data_phase(dev, root=None, xing=XING_RAW, ml1m=ML1M_RAW, steps=16,
+                   window=8, serve_users=256):
+    """The real configurations from raw dumps, as users run them, under a
+    temporary directory in _data/ that the phase deletes at its end:
+    (b) a raw XING dump (RecSys'17 layout) prepared into c4's dataset, c4
+        (configs/c4_lstm_attr_xing.json as it stands) trained for `steps`
+        steps through `cli.main.main`, Recall@30 from its checkpoint with
+        eval_recall_target 1.0 and 0.95, and 8 requests served with
+        serve_recall_target 1.0 and 0.95;
+    (c) a raw ML-1M dump (GroupLens layout, published counts) prepared,
+        c2 (configs/c2_mf_attr_ml1m.json) trained for `steps` steps
+        through the CLI, and `serve_users` users served.
+    The only overrides are data.raw_dir, data.data_dir, train.train_dir,
+    train.max_steps (= steps) and train.steps_per_checkpoint (= window, so
+    that the loop's metrics record its examples/s over each window of
+    steps; the first window holds the loop's start). Returns {kernel:
+    launches}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from arec_torch.cli.main import load_config, main as cli_main, parse_args
+    from arec_torch.data.io import load_or_prepare
+    from arec_torch.retrieval.mips import approx_reduction_size
+    from arec_torch.serve import Recommender
+    from arec_torch.train.loop import Trainer
+
+    base = os.path.join(ROOT, "_data") if root is None else root
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_raw-", dir=base)
+    counters = all_counters()
+    launches = {k: 0 for k in counters}
+
+    def counted(fn, *args, **kw):
+        for f in counters.values():                  # ---- the main path
+            f.launches = 0
+        result = run_logged(fn, *args, **kw)
+        for k, f in counters.items():                # ---- read just after
+            launches[k] += f.launches
+        return result, {k: f.launches for k, f in counters.items()
+                        if f.launches}
+
+    def config(path, name):
+        argv = ["--config", path]
+        for k, v in (("data.raw_dir", os.path.join(root, name)),
+                     ("data.data_dir", os.path.join(root, "prep")),
+                     ("train.train_dir", os.path.join(root, f"t_{name}")),
+                     ("train.max_steps", steps),
+                     ("train.steps_per_checkpoint", window)):
+            argv += ["--set", f"{k}={v}"]
+        return argv, load_config(parse_args(argv))
+
+    def train(what, argv, cfg):
+        t0 = time.perf_counter()
+        ds = load_or_prepare(cfg.data)
+        prep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (rc, out), used = counted(cli_main, argv, device=dev)
+        wall_s = time.perf_counter() - t0
+        assert rc == 0, rc
+        summary = json.loads(out.strip().splitlines()[-1])
+        assert summary["steps"] == steps, summary
+        with open(os.path.join(cfg.train.train_dir, "metrics.jsonl")) as f:
+            records = [r for r in map(json.loads, f) if "loss" in r]
+        assert [r["step"] for r in records] == list(
+            range(window, steps + 1, window)), records
+        assert all(math.isfinite(r["loss"]) for r in records), records
+        log(f"{what}: prep {prep_s:.2f} s ({ds.num_users} users, V "
+            f"{ds.num_items} after truncation, {len(ds.train_users)} train "
+            f"interactions, {len(ds.valid_users)} held out, seen slab "
+            f"{ds.seen_items.shape[1]}); {steps} steps through "
+            f"cli.main.main in {wall_s:.2f} s (state build, "
+            f"{len(records) + 1} evals, save): loss "
+            f"{[round(r['loss'], 4) for r in records]}, examples/s through "
+            f"the loop {[round(r['examples_per_s'], 1) for r in records]} "
+            f"(windows of {window} steps); launches {used}; summary "
+            f"{summary}")
+        return ds
+
+    def with_train(cfg, **kw):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, **kw))
+
+    try:
+        # ---- (b) raw XING -> c4 -----------------------------------------
+        t0 = time.perf_counter()
+        write_xing_raw(os.path.join(root, "xing"), **xing)
+        log(f"(b) wrote a raw XING dump ({xing}) in "
+            f"{time.perf_counter() - t0:.2f} s; reduced: {XING_RAW_CUTS}")
+        argv, cfg = config(C4, "xing")
+        assert cfg.data.dataset == "xing" and cfg.model.model == "lstm"
+        ds = train("(b) c4 from raw XING", argv, cfg)
+        if xing is XING_RAW:
+            assert ds.num_items == cfg.data.item_vocab_size, ds.num_items
+        k, width = cfg.train.eval_topk, ds.seen_items.shape[1]
+        r, l = approx_reduction_size(ds.num_items, k + width, APPROX_TARGET)
+        for target in (1.0, APPROX_TARGET):
+            tr = Trainer(with_train(cfg, eval_recall_target=target),
+                         serve_only=True, device=dev)
+            t0 = time.perf_counter()
+            recall = tr.evaluate(exact=target == 1.0)
+            log(f"(b) Recall@{k} from the step-{steps} checkpoint, "
+                f"eval_recall_target {target}: {recall:.5f} over "
+                f"{len(ds.valid_users)} held-out rows in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (f" (the eval's seen slab is {width} wide: "
+                   f"{min(k + width, ds.num_items)} candidates, R {r}, l "
+                   f"{l})" if target < 1 else ""))
+            del tr
+        rng = np.random.default_rng(4)
+        users = rng.choice(np.flatnonzero(ds.hist_lengths >= 1), 8,
+                           replace=False)
+        hists = [ds.hist_items[u][: ds.hist_lengths[u]].tolist()
+                 for u in users]
+        served = {}
+        for target in (1.0, APPROX_TARGET):
+            rec = Recommender(with_train(cfg, serve_recall_target=target),
+                              device=dev)
+            served[target] = rec.from_histories(hists)
+            for row, h in zip(served[target], hists):
+                assert not set(row.tolist()) & set(h)
+                assert ((row >= 0) & (row < ds.num_items)).all()
+            del rec
+        log(f"(b) served {len(hists)} requests (histories of "
+            f"{[len(h) for h in hists]}) from the checkpoint with "
+            f"serve_recall_target 1.0 and {APPROX_TARGET}: top-30 overlap "
+            f"{approx_overlap(served[1.0], served[APPROX_TARGET]):.4f}")
+        del ds
+        free()
+
+        # ---- (c) raw ML-1M -> c2 ----------------------------------------
+        t0 = time.perf_counter()
+        write_ml1m_raw(os.path.join(root, "ml1m"), **ml1m)
+        log(f"(c) wrote a raw ML-1M dump ({ml1m}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv, cfg = config(os.path.join(ROOT, "configs",
+                                        "c2_mf_attr_ml1m.json"), "ml1m")
+        assert cfg.data.dataset == "ml1m" and cfg.model.model == "mf"
+        ds = train("(c) c2 from raw ML-1M", argv, cfg)
+        users = ds.valid_users[:serve_users].astype(np.int32)
+        seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist()
+                for u in users]
+        rec = Recommender(cfg, device=dev)
+        t0 = time.perf_counter()
+        ids = rec.for_users(users, seen=seen)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert ids.shape == (len(users), cfg.train.eval_topk)
+        for row, s in zip(ids, seen):
+            if ds.num_items - len(set(s)) >= cfg.train.eval_topk:
+                assert not set(row.tolist()) & set(s)
+            assert ((row >= 0) & (row < ds.num_items)).all()
+        log(f"(c) served {len(users)} users from the checkpoint in "
+            f"{ms:.3f} ms (first call)")
+        del rec
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def free():
     """Drop the last phase's model, tables and optimizer state from the
     card before the next phase builds its own."""
@@ -2162,6 +2734,12 @@ def main() -> int:
     through_trainer = trainer_phase(dev)
     log(f"MF examples/s: bare sparse steps {bare_eps:.1f} (the MF phase) "
         f"beside the Trainer's loop in the metrics records above")
+    free()
+    input_path_phase(dev)
+    free()
+    through_approx = approx_topk_phase(dev)
+    free()
+    through_raw = raw_data_phase(dev)
     free()
 
     def row(name, source, replaces, fn, launches, err, t, shape, library):
@@ -2313,9 +2891,13 @@ def main() -> int:
         scatter_row(),
     ]
     for k in kernels:
-        # the Trainer phase's runs: the main path as users run it
+        # the Trainer phase's runs and the raw-data configurations' runs:
+        # the main path as users run it; the approximate serving batches
         k["launches_trainer"] = through_trainer[k["name"]]
-        k["launches"] += through_trainer[k["name"]]
+        k["launches_raw_data"] = through_raw[k["name"]]
+        k["launches_approx_serving"] = through_approx.get(k["name"], 0)
+        k["launches"] += (k["launches_trainer"] + k["launches_raw_data"]
+                          + k["launches_approx_serving"])
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)

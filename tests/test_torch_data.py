@@ -82,10 +82,3 @@ def test_prepared_cache_is_shared(tmp_path, writer):
     loaded = second.load_or_prepare(tcfg if second is tio else jcfg)
     assert os.listdir(tmp_path) == files       # read the cache, no re-prep
     _assert_same(loaded, made)
-
-
-def test_unported_prep_paths_raise(tmp_path):
-    for ds in ("ml1m", "xing"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tio.load_or_prepare(TDataConfig(dataset=ds,
-                                            data_dir=str(tmp_path)))

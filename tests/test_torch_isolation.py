@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -217,3 +218,64 @@ def test_cli_trains_then_serves_from_checkpoint_with_jax_and_arec_blocked(
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("served")
+
+
+_CHILD_RAW = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from arec_torch.cli.main import main
+
+    torch.set_num_threads(1)
+    tmp, raw = sys.argv[1], sys.argv[2]
+    argv = ["--set", "data.dataset=ml1m", "--set", f"data.raw_dir={raw}",
+            "--set", f"data.data_dir={tmp}/d", "--set", "model.model=lstm",
+            "--set", "model.dim=8", "--set", "model.max_seq_len=6",
+            "--set", "train.batch_size=8", "--set", "train.num_sampled=8",
+            "--set", "train.max_steps=4", "--set", "train.steps_per_checkpoint=2",
+            "--set", "train.eval_recall_target=0.95",
+            "--set", "train.compute_dtype=float32",
+            "--set", f"train.train_dir={tmp}/t"]
+    assert main(argv, device="cpu") == 0
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("trained")
+""")
+
+
+def _ml1m_raw(d):
+    """A tiny GroupLens `::` dump: users.dat, movies.dat, ratings.dat."""
+    d.mkdir()
+    rng = np.random.default_rng(0)
+    (d / "users.dat").write_text("\n".join(
+        f"{u}::{'MF'[u % 2]}::{[1, 18, 25, 35][u % 4]}::{u % 21}::{u:05d}"
+        for u in range(1, 31)))
+    (d / "movies.dat").write_text("\n".join(
+        f"{m}::Movie {m} ({1970 + m})::{['Drama', 'Comedy|Action'][m % 2]}"
+        for m in range(1, 41)))
+    (d / "ratings.dat").write_text("\n".join(
+        f"{u}::{m}::{rng.integers(1, 6)}::{978300000 + 100 * u + n}"
+        for u in range(1, 31)
+        for n, m in enumerate(rng.choice(np.arange(1, 41), 8,
+                                         replace=False))))
+    return str(d)
+
+
+def test_cli_preps_raw_ml1m_and_trains_with_jax_and_arec_blocked(tmp_path):
+    """Raw ML-1M prep, the C++ packer and the approximate eval top-k stand
+    alone too."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    raw = _ml1m_raw(tmp_path / "ml-1m")
+    proc = subprocess.run([sys.executable, "-c", _CHILD_RAW, str(tmp_path),
+                           raw], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "trained"
+    assert os.listdir(tmp_path / "d")[0].startswith("ml1m-")

@@ -103,12 +103,6 @@ def test_topk_with_mask_dispatch_matches_arec(monkeypatch):
     _check(got, want, scores)
 
 
-def test_approx_topk_is_not_ported():
-    q, lat, bias, seen = map(torch.from_numpy, _inputs(300, 8))
-    with pytest.raises(NotImplementedError, match="approx"):
-        tev.topk_with_mask(q, lat, bias, seen, k=5, recall_target=0.95)
-
-
 def test_recall_hits_matches_arec():
     from arec.train.evalu import recall_hits as j_recall
     q, lat, bias, seen = _inputs(300, 8)

@@ -174,7 +174,6 @@ def test_steps_per_dispatch_equals_single_steps(tmp_path):
 @pytest.mark.parametrize("train,err,match", [
     (dict(steps_per_dispatch=8, steps_per_checkpoint=12), ValueError,
      "multiple of steps_per_dispatch"),
-    (dict(eval_recall_target=0.95), NotImplementedError, "A4"),
     (dict(batch_ht=True), ValueError, "batch_ht"),
 ])
 def test_refused_knobs(tmp_path, train, err, match):
@@ -189,12 +188,6 @@ def test_refuses_a_device_mesh(tmp_path, model):
                       mesh=MeshConfig(data=2, model=4))
     with pytest.raises(NotImplementedError, match="A7"):
         Trainer(cfg, device="cpu")
-
-
-def test_recommend_refuses_approximate_serving(tmp_path):
-    tr = Trainer(_tiny(tmp_path, serve_recall_target=0.9), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tr.recommend()
 
 
 def test_serve_only_trainer_allocates_nothing_and_cannot_train(tmp_path):
