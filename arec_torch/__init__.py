@@ -11,6 +11,9 @@ PyTorch version only for CPU tensors.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit device they raise instead of running on the CPU.
+Under a launcher (`torchrun`: LOCAL_RANK set) a rank's default is
+`cuda:{LOCAL_RANK}`; ranks that outnumber the cards must be given their
+device.
 """
 
 from __future__ import annotations
@@ -19,9 +22,13 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` when given, else `cuda`.
-    Raises when `cuda` is wanted and absent — never a silent CPU run."""
-    dev = torch.device("cuda" if device is None else device)
+    """The device an entry point runs on: `device` when given, else the
+    rank's card (`dist.mesh.rank_device`: `cuda`, or `cuda:{LOCAL_RANK}`
+    under a launcher). Raises when `cuda` is wanted and absent — never a
+    silent CPU run."""
+    from arec_torch.dist.mesh import rank_device
+
+    dev = rank_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the port on the CPU")

@@ -12,6 +12,11 @@ or r|u|n (GRU); it is never split into nn.LSTM's or nn.GRU's parameters. numpy a
 sides never share memory; torch leaves are moved to `device` (no copy when
 they are already there).
 
+`shard_params` hands the same canonical tree to one rank of a mesh: each
+table padded to a model-axis multiple, laid out in its RowPerm order
+(row_shard = "shuffle") and cut to this rank's row block; the other
+leaves whole.
+
 `train_state_from_arec` carries a whole arec `TrainState` across (params,
 optimizer state, lr scale, step), so a run can continue mid-training on
 either side from the same state; `sparse_train_state_from_arec` does the
@@ -47,6 +52,24 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy().copy()
+
+
+def shard_params(params, mesh, perms: dict, device="cpu"):
+    """arec's canonical (natural-row) param tree, numpy or torch → this
+    rank's tree on `device`: every table (`dist.specs.table_role`) padded,
+    permuted by perms[role] when there is one, and cut to this rank's
+    "model" row block; every other leaf replicated."""
+    from arec_torch.dist.global_io import put_replicated_global
+    from arec_torch.dist.specs import table_role, tree_map_with_keys
+
+    def put(keys, leaf):
+        full = to_torch(leaf)
+        role = table_role(keys)
+        if role is not None and role in perms:
+            full = perms[role].permute_table(full)
+        return put_replicated_global(full, mesh, device,
+                                     row_sharded=role is not None)
+    return tree_map_with_keys(put, params)
 
 
 def _opt_state_from_optax(opt, device):

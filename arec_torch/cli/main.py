@@ -10,7 +10,10 @@ command line configures either package.
 Training prints the summary JSON; --recommend restores the latest
 checkpoint under train.train_dir and writes the top-K lists; the
 standing server is `python -m arec_torch.serve`. Both run on `cuda`;
-`main(argv, device="cpu")` runs them on the CPU from Python.
+`main(argv, device="cpu")` runs them on the CPU from Python. A config
+with a mesh (mesh.data × mesh.model > 1) runs --recommend one rank per
+process (`torchrun --nproc-per-node N -m arec_torch.cli.main ...`); the
+primary rank writes the file. Training on a mesh raises (ROADMAP A7.3).
 """
 
 from __future__ import annotations
@@ -102,7 +105,14 @@ def main(argv=None, device=None) -> int:
         return validate_prep(cfg, args.write_golden)
     from arec_torch.train.loop import Trainer
 
-    trainer = Trainer(cfg, device=device)
+    # on a mesh (one rank per process, `torchrun`) the port serves and
+    # evaluates, and --recommend restores into a serve-only Trainer
+    on_mesh = cfg.mesh.data * cfg.mesh.model > 1
+    trainer = Trainer(cfg, serve_only=args.recommend and on_mesh,
+                      device=device)
+    if trainer.serve_only and trainer.latest_step() is None:
+        raise FileNotFoundError(
+            f"no checkpoint under {cfg.train.train_dir!r} to recommend from")
     try:
         if args.recommend:
             rows = trainer.recommend(out_path=args.out or None)

@@ -318,12 +318,14 @@ class Config:
         return out
 
 
-def require_one_device(cfg: Config) -> None:
-    """Raise for a config whose mesh spans more than one device (data ×
-    model > 1, arec's own test for "uses a mesh"): the port runs on one
-    card until the multi-GPU port (ROADMAP A7), and must not run a mesh
-    config there silently."""
+def refuse_mesh_training(cfg: Config) -> None:
+    """Raise for training on a config whose mesh spans more than one device
+    (data × model > 1, arec's own test for "uses a mesh"): the port serves
+    and evaluates on a mesh, and trains on one until the mesh training
+    slices (ROADMAP A7.3 dense, A7.4 sparse) land."""
     if cfg.mesh.data * cfg.mesh.model > 1:
         raise NotImplementedError(
-            f"a {cfg.mesh.data} x {cfg.mesh.model} device mesh waits for the "
-            f"multi-GPU port (ROADMAP A7); set mesh.data = mesh.model = 1")
+            f"training on a {cfg.mesh.data} x {cfg.mesh.model} device mesh "
+            f"waits for ROADMAP A7.3 (dense step) / A7.4 (sparse step); "
+            f"serving and evaluation run on it, training needs mesh.data = "
+            f"mesh.model = 1")

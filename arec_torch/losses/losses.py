@@ -7,7 +7,7 @@ optional Horvitz–Thompson correction (`_ht_weights`).
 Every sampled loss takes pre-drawn `sampled=(ids, p)`, so the sparse train
 step's touched rows and the loss's candidates are one draw. arec's
 `gather_cands` (the sparse-mesh step's all_gather of in-batch candidates)
-waits for the multi-GPU port (ROADMAP A7) and raises.
+and the mesh path wait for mesh training (ROADMAP A7.3, A7.4) and raise.
 
 Candidate-side encoding is one `embed(ids) -> (v [n, D], bias [n])`
 callable, so the per-candidate bias arrives in the same row gather as the
@@ -54,8 +54,8 @@ def sampled_softmax_loss(query, true_ids, embed, gen, num_sampled: int,
     TPU row-count crossover is not inherited."""
     if mesh is not None:
         raise NotImplementedError(
-            "sampled_softmax_loss over a device mesh waits for the "
-            "multi-GPU port (ROADMAP A7)")
+            "sampled_softmax_loss over a device mesh waits for mesh "
+            "training (ROADMAP A7.3)")
     sampled_ids, p = sampled if sampled is not None else draw(
         gen, num_sampled, vocab, dist, pop)
     v_samp, b_samp = embed(sampled_ids)                    # [S, D], [S]
@@ -184,7 +184,7 @@ def _batch_scores(query, true_ids, embed, compute_dtype, gather_cands):
     if gather_cands is not None:
         raise NotImplementedError(
             "gather_cands (in-batch candidates across a device mesh) waits "
-            "for the multi-GPU port (ROADMAP A7)")
+            "for mesh training (ROADMAP A7.4)")
     v, b_bias = embed(true_ids)                                    # [b, D]
     scores = mm_f32(query, v.T, compute_dtype) + b_bias[None, :]
     pos = torch.diagonal(scores)

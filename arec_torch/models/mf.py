@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from arec_torch.config import Config, require_one_device
+from arec_torch.config import Config
 from arec_torch.data.schema import EntitySchema
 from arec_torch.losses.losses import (
     batch_bpr_loss, batch_mw_loss, bpr_loss, sampled_softmax_loss, warp_loss,
@@ -49,7 +49,6 @@ class MFSpec:
     @staticmethod
     def from_config(cfg: Config, user_schema: EntitySchema,
                     item_schema: EntitySchema) -> "MFSpec":
-        require_one_device(cfg)
         if not cfg.model.use_attributes:
             user_schema = user_schema.id_only()
             item_schema = item_schema.id_only()
@@ -93,11 +92,11 @@ def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,
     step's key (arec_torch.rng): it splits into the dropout and the
     negatives streams, as arec's rng does. use_kernel: the fused CE kernels
     for `ce` (see `sampled_softmax_loss`). `mesh` and `gather_cands` serve
-    arec's mesh paths and raise until the multi-GPU port (ROADMAP A7)."""
+    arec's mesh training paths and raise until ROADMAP A7.3."""
     if mesh is not None or gather_cands is not None:
         raise NotImplementedError(
-            "mf_loss over a device mesh (mesh, gather_cands) waits for the "
-            "multi-GPU port (ROADMAP A7)")
+            "mf_loss over a device mesh (mesh, gather_cands) waits for "
+            "mesh training (ROADMAP A7.3)")
     lk = lookup_fns or {}
     g_drop, g_neg = split(gen, batch["user"].device)
     u = encode(params["user"], spec.user, user_dev, batch["user"],
@@ -146,11 +145,15 @@ def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,
 
 def mf_user_latents(params, spec: MFSpec, user_dev, user_ids,
                     lookup_fn=dense_lookup) -> torch.Tensor:
+    """User latents [B, dim]; `lookup_fn`: the user table's row gather
+    (on a mesh, the masked lookup over "model")."""
     return encode(params["user"], spec.user, user_dev, user_ids, lookup_fn)
 
 
 def mf_item_latents(params, spec: MFSpec, item_dev, block: int = 8192,
-                    lookup_fn=dense_lookup):
-    """All-item latent matrix [V, dim] + bias [V] for eval and retrieval."""
+                    lookup_fn=dense_lookup, ids=None):
+    """Item latent matrix [V, dim] + bias [V] for eval and retrieval, over
+    every item or, on a mesh, over `ids` (a rank's own item range)."""
     return encode_all_items_with_bias(params["item"], spec.item, item_dev,
-                                      block=block, lookup_fn=lookup_fn)
+                                      block=block, lookup_fn=lookup_fn,
+                                      ids=ids)

@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from arec_torch.config import Config, require_one_device
+from arec_torch.config import Config
 from arec_torch.data.schema import EntitySchema
 from arec_torch.losses.losses import sampled_softmax_loss
 from arec_torch.rng import fold_in, generator, split
@@ -87,7 +87,6 @@ class SeqSpec:
     @staticmethod
     def from_config(cfg: Config, user_schema: EntitySchema,
                     item_schema: EntitySchema) -> "SeqSpec":
-        require_one_device(cfg)
         if cfg.train.loss not in ("ce", "mce"):
             raise ValueError(
                 f"sequence model supports loss ce/mce, not "
@@ -395,15 +394,19 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     return loss
 
 
-def seq_final_state(params, spec: SeqSpec, item_dev, user_dev,
-                    batch) -> torch.Tensor:
+def seq_final_state(params, spec: SeqSpec, item_dev, user_dev, batch,
+                    lookup_fn=dense_lookup,
+                    lookup_fns: dict | None = None) -> torch.Tensor:
     """Recommend path: with left-padding the state at the last position is
-    the state after the user's whole (truncated) history."""
-    return seq_hidden(params, spec, item_dev, user_dev, batch)[:, -1, :]
+    the state after the user's whole (truncated) history. lookup_fn /
+    lookup_fns: the row gather, per role (on a mesh, the masked lookups)."""
+    return seq_hidden(params, spec, item_dev, user_dev, batch,
+                      lookup_fn=lookup_fn, lookup_fns=lookup_fns)[:, -1, :]
 
 
-def seq_final_state_full(params, spec: SeqSpec, item_dev, user_dev,
-                         batch) -> torch.Tensor:
+def seq_final_state_full(params, spec: SeqSpec, item_dev, user_dev, batch,
+                         lookup_fn=dense_lookup,
+                         lookup_fns: dict | None = None) -> torch.Tensor:
     """Final state over a history of ANY length: batch["inputs"]/["mask"]
     are [B, n·L]; the scan runs in n segments of length L, carrying (h, c).
     With left-padding this is exactly the state of the unsegmented scan."""
@@ -414,7 +417,8 @@ def seq_final_state_full(params, spec: SeqSpec, item_dev, user_dev,
                          f"max_seq_len {L}")
     n = total // L
     if n == 1:
-        return seq_final_state(params, spec, item_dev, user_dev, batch)
+        return seq_final_state(params, spec, item_dev, user_dev, batch,
+                               lookup_fn, lookup_fns)
     states = init_states(spec, batch["inputs"].shape[0],
                          batch["inputs"].device)
     for s in range(n):
@@ -422,17 +426,30 @@ def seq_final_state_full(params, spec: SeqSpec, item_dev, user_dev,
         seg["inputs"] = batch["inputs"][:, s * L:(s + 1) * L]
         seg["mask"] = batch["mask"][:, s * L:(s + 1) * L]
         h, states = seq_hidden(params, spec, item_dev, user_dev, seg,
-                               states=states, return_states=True)
+                               states=states, return_states=True,
+                               lookup_fn=lookup_fn, lookup_fns=lookup_fns)
     return h[:, -1, :]
 
 
-def seq_item_latents(params, spec: SeqSpec, item_dev=None):
-    """Output-side item matrix [V, D] + bias [V] for retrieval."""
+def seq_item_latents(params, spec: SeqSpec, item_dev=None,
+                     lookup_fn=dense_lookup, out_lookup=None, ids=None):
+    """Output-side item matrix [V, D] + bias [V] for retrieval. `lookup_fn`
+    serves the tie_output (fused-encoder) path; `out_lookup` (when set)
+    reads the item_out rows through a lookup: on a mesh, where the table
+    is row-sharded (and stored in RowPerm order under row_shard =
+    "shuffle"). `ids` (1-D, a rank's own item range) encodes those items
+    instead of all; an id ≥ V reads a pad row."""
     v, d = spec.vocab, spec.dim
     if spec.tie_output:
         return encode_all_items_with_bias(params["item_in"], spec.item_in,
-                                          item_dev)
+                                          item_dev, lookup_fn=lookup_fn,
+                                          ids=ids)
     t = params["item_out"]
+    if out_lookup is not None:
+        if ids is None:
+            ids = torch.arange(v, dtype=torch.int32, device=t.device)
+        rows = out_lookup(t, ids)
+        return rows[:, :d], rows[:, d].contiguous()
     # the bias column is copied out contiguous (a strided [V] view would be
     # re-read with a 4(D+1)-byte stride by every query row of the top-k)
     return t[:v, :d], t[:v, d].contiguous()

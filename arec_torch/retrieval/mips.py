@@ -1,5 +1,5 @@
-"""Serving-time candidate retrieval: top-k MIPS over the item table (port
-of the single-device modes of `arec/retrieval/mips.py`).
+"""Serving-time candidate retrieval: top-k MIPS over the (sharded) item
+table (port of `arec/retrieval/mips.py`).
 
 Query-blocked: each chunk of queries scores the full vocab, masks its seen
 items and selects top-k, so peak score memory stays within `score_mem_mb`
@@ -8,7 +8,14 @@ recall_target = 1 is exact; recall_target < 1 selects with `approx_max_k`,
 the port's counterpart of `lax.approx_max_k`, over top-(k+S) candidates
 and masks the seen ids among them, as arec does.
 
-Not ported: the sharded top-k, which comes with the multi-GPU slice.
+On a mesh (`make_sharded_topk`) each rank holds a contiguous block of the
+item matrix (rows padded to a model-axis multiple, pad bias −1e9:
+`pad_item_shards`) and its "data" slab of the queries; it scores its
+block query-blocked, masks the seen ids that fall in its block (seen ids
+are global), takes a local top-min(k, Vs), and the candidates are
+all-gathered over "model" in shard order for an exact merge. The top-k of
+a union of per-shard top-ks is the global top-k, so the merge loses
+nothing; ties may be ordered differently from arec's `lax.top_k`.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 TILING = 128   # XLA's tile of the reduced (minor-most) dimension
 
@@ -132,3 +140,118 @@ def blocked_topk_mips(query, item_latents, item_bias, seen, k: int = 30,
         vals.append(tv)
         ids.append(ti)
     return torch.cat(vals), torch.cat(ids)
+
+
+def _local_score_topk(q, v_shard, b_shard, seen, k, compute_dtype, offset,
+                      score_mem_mb=512, recall_target=1.0, qblock=0):
+    """One rank's part of the sharded top-k: score the item block
+    v_shard [Vs, D] (global ids offset .. offset + Vs) query-blocked under
+    `score_mem_mb`, mask the seen ids in this block, and return the local
+    top-min(k, Vs) (values, GLOBAL ids). recall_target < 1 selects each
+    chunk with `approx_max_k` over top-(k+S) candidates and masks the
+    seen ids among them (sentinel id −1), as `blocked_topk_mips` does."""
+    vs = v_shard.shape[0]
+    kl = min(k, vs)
+    bl = q.shape[0]
+    s_width = seen.shape[1]
+    if not qblock:
+        qblock = max(1, min(bl, (score_mem_mb << 20) // max(4 * vs, 1)))
+        nb = -(-bl // qblock)
+        qblock = -(-bl // nb)
+    exact = recall_target >= 1.0
+    if not exact:
+        # sorted GLOBAL ids (pad → int32 max) for candidate-set membership
+        seen = torch.sort(torch.where(seen >= 0, seen, 2**31 - 1).long(),
+                          dim=1).values
+        kb = min(k + s_width, vs)
+    qs = q.to(compute_dtype).float()
+    vt = v_shard.to(compute_dtype).float().T
+    vals, ids = [], []
+    for s in range(0, bl, qblock):
+        sn = seen[s:s + qblock]
+        scores = qs[s:s + qblock] @ vt + b_shard[None, :]
+        if exact:
+            local = sn.long() - offset
+            mine = (local >= 0) & (local < vs) & (sn >= 0)
+            rows = torch.arange(sn.shape[0], device=sn.device)[:, None]
+            scores.index_put_((rows.expand(sn.shape), local.clamp(0, vs - 1)),
+                              torch.where(mine, -1e9, 0.0).to(scores.dtype),
+                              accumulate=True)
+            tv, ti = torch.topk(scores, kl, dim=1)
+            gi = ti + offset
+        else:
+            cv, ci = approx_max_k(scores, kb, recall_target)
+            ci = ci + offset
+            if s_width > 0:
+                pos = torch.searchsorted(sn, ci).clamp_max(s_width - 1)
+                hit = sn.gather(1, pos) == ci
+                cv = cv.masked_fill(hit, -math.inf)
+                ci = ci.masked_fill(hit, -1)
+            tv, tp = torch.topk(cv, kl, dim=1)
+            gi = ci.gather(1, tp)
+        vals.append(tv)
+        ids.append(gi)
+    return torch.cat(vals), torch.cat(ids)
+
+
+def _gather_model(x, group, t):
+    """[Bl, kl] per rank → [Bl, T·kl], the model ranks' blocks side by
+    side in shard order."""
+    parts = [torch.empty_like(x) for _ in range(t)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def make_sharded_topk(mesh, k: int = 30, compute_dtype=torch.bfloat16,
+                      score_mem_mb: int = 512, recall_target: float = 1.0,
+                      qblock: int = 0):
+    """topk(query, item_shard, bias_shard, seen) → (scores, ids) [Bl, k]:
+    the global top-k of this rank's "data" slab of queries (query [Bl, D],
+    seen [Bl, S] global ids, PAD = −1) over the item matrix row-sharded
+    over "model" (item_shard [Vs, D], bias_shard [Vs]: this rank's block,
+    see `pad_item_shards`). Exact by default; recall_target < 1 selects
+    approximately per shard, and the merge stays exact. Where the
+    candidates are fewer than k (the whole vocabulary is), the tail is
+    −inf / −1, as in arec."""
+    from arec_torch.dist.specs import TABLE_AXIS
+    group, t = mesh.get_group(TABLE_AXIS), mesh.size(1)
+    me = mesh.get_local_rank(TABLE_AXIS)
+
+    def topk(query, item_shard, bias_shard, seen):
+        vals, ids = _local_score_topk(
+            query, item_shard, bias_shard, seen, k, compute_dtype,
+            me * item_shard.shape[0], score_mem_mb, recall_target, qblock)
+        all_vals = _gather_model(vals, group, t)
+        all_ids = _gather_model(ids, group, t)
+        km = min(k, all_vals.shape[1])
+        m_vals, m_pos = torch.topk(all_vals, km, dim=1)
+        m_ids = all_ids.gather(1, m_pos)
+        if km < k:
+            m_vals = torch.nn.functional.pad(m_vals, (0, k - km),
+                                             value=-math.inf)
+            m_ids = torch.nn.functional.pad(m_ids, (0, k - km), value=-1)
+        return m_vals, m_ids
+
+    return topk
+
+
+def sharded_topk(mesh, query, item_shard, bias_shard, seen, k: int = 30,
+                 compute_dtype=torch.bfloat16, score_mem_mb: int = 512,
+                 recall_target: float = 1.0):
+    """One-shot `make_sharded_topk`."""
+    return make_sharded_topk(mesh, k=k, compute_dtype=compute_dtype,
+                             score_mem_mb=score_mem_mb,
+                             recall_target=recall_target)(
+        query, item_shard, bias_shard, seen)
+
+
+def pad_item_shards(item_latents, item_bias, model_size: int):
+    """Pad V up to a model-axis multiple: zero latents, bias −1e9, so pad
+    rows never enter a top-k."""
+    v = item_latents.shape[0]
+    pad = -(-v // model_size) * model_size - v
+    if pad:
+        item_latents = torch.cat([item_latents, item_latents.new_zeros(
+            (pad, item_latents.shape[1]))])
+        item_bias = torch.cat([item_bias, item_bias.new_full((pad,), -1e9)])
+    return item_latents, item_bias

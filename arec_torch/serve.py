@@ -20,6 +20,15 @@ An MF tree may be the sparse step's packed one (tables [V, 2D]); it is
 read through `unpack_params`, as arec's `Trainer._eval_params` does. With
 serve_recall_target < 1 the top-k is the approximate one of
 `retrieval.mips` (`approx_max_k` over top-(k+S) candidates), as in arec.
+
+On a mesh (cfg.mesh data × model > 1) the process is one rank of the
+process group (`torchrun --nproc-per-node N -m arec_torch.serve ...`, or
+a caller that initialised the group): it holds its row block of the
+tables and of the item matrix (`pad_item_shards`' padding), encodes its
+"data" slab of each padded batch, runs the sharded top-k, and gathers the
+[B, k] lists over "data", so every rank returns the whole answer (arec's
+replicated out_shardings). Every rank must make the same calls in the
+same order.
 """
 
 from __future__ import annotations
@@ -31,9 +40,10 @@ import torch
 
 from arec_torch import bridge, resolve_device
 from arec_torch.config import Config
+from arec_torch.dist.global_io import all_hosts_concat, shard_from_hosts
 from arec_torch.models import mf as mf_mod
 from arec_torch.train.loop import (
-    Trainer, _item_latents, _serve_step, build_model,
+    Trainer, _item_latents, _MeshServing, _serve_step, build_model,
 )
 from arec_torch.train.sparse import get_path, table_paths, unpack_params
 
@@ -103,12 +113,13 @@ class Recommender:
         if params is None:
             t = self._trainer = Trainer(cfg, serve_only=True,
                                         device=self.device)
-            if t.ckpt.latest_step() is None:
+            if t.latest_step() is None:
                 raise FileNotFoundError(
                     f"no checkpoint under {cfg.train.train_dir!r} — refusing "
                     "to serve an untrained model")
             self._ds, self.spec = t.ds, t.spec
             self._item_dev, self._user_dev = t.item_dev, t.user_dev
+            self._sh = t.sh
             self._params = t._eval_params()
             # checkpoints are labelled with the global step, so the
             # restored state's step is the label refresh() compares against
@@ -117,16 +128,26 @@ class Recommender:
             self._trainer = None
             self._ds, self.spec, self._item_dev, self._user_dev = (
                 build_model(cfg, self.device))
-            self._params = bridge.to_torch(params, self.device)
+            self._sh = None
+            if cfg.mesh.data * cfg.mesh.model > 1:
+                self._sh = _MeshServing(cfg, self.spec, not isinstance(
+                    self.spec, mf_mod.MFSpec), self.device)
+                self._params = bridge.shard_params(
+                    params, self._sh.mesh, self._sh.perms, self.device)
+            else:
+                self._params = bridge.to_torch(params, self.device)
             if isinstance(self.spec, mf_mod.MFSpec):
                 self._params = _mf_params(self.spec, self._params)
             self._restored_step = None   # handed in, not restored
         self.is_seq = not isinstance(self.spec, mf_mod.MFSpec)
+        if self._sh is not None and serve_batch % self._sh.n_data:
+            raise ValueError(f"serve_batch {serve_batch} does not split "
+                             f"over {self._sh.n_data} data ranks")
         with torch.inference_mode():
             self._vb = _item_latents(cfg, self.spec, self._params,
-                                     self._item_dev)
+                                     self._item_dev, self._sh)
         self._step = _serve_step(cfg, self.spec, self._item_dev,
-                                 self._user_dev, self.k)
+                                 self._user_dev, self.k, self._sh)
 
     def refresh(self) -> bool:
         """Pick up the newest checkpoint in place: re-restore, re-encode the
@@ -143,7 +164,7 @@ class Recommender:
             raise RuntimeError("refresh follows a checkpoint; this "
                                "Recommender's weights were handed in")
         t.ckpt.drain()
-        latest = t.ckpt.latest_step()
+        latest = t.latest_step()
         if latest is None:
             raise FileNotFoundError(
                 f"no checkpoint under {self.cfg.train.train_dir!r}")
@@ -156,7 +177,7 @@ class Recommender:
             self._params = t._eval_params()
             with torch.inference_mode():
                 vb = _item_latents(self.cfg, self.spec, self._params,
-                                   self._item_dev)
+                                   self._item_dev, self._sh)
         except Exception as e:
             raise RuntimeError(
                 "Recommender.refresh failed mid-restore; this instance no "
@@ -190,16 +211,21 @@ class Recommender:
 
     # ------------------------------------------------------------------
     def _run(self, batches) -> np.ndarray:
-        """batches: iterable of (numpy batch dict, n_valid) → [N, k] ids."""
+        """batches: iterable of (numpy batch dict, n_valid) → [N, k] ids.
+        On a mesh each rank encodes its "data" slab of every batch, and the
+        slabs' lists are gathered back over "data"."""
         ids_out = []
         v, b = self._vb
+        sh = self._sh
         with torch.inference_mode():
             for batch, n_valid in batches:
-                tb = {kk: torch.from_numpy(x).to(self.device)
-                      for kk, x in batch.items() if kk != "seen"}
-                seen = torch.from_numpy(batch["seen"]).to(self.device)
+                tb = shard_from_hosts(batch, None if sh is None else sh.mesh,
+                                      self.device)
+                seen = tb.pop("seen")
                 _, ids = self._step(self._params, v, b, tb, seen)
-                ids_out.append(ids[:n_valid].cpu().numpy().astype(np.int32))
+                ids = (ids.cpu().numpy() if sh is None else
+                       all_hosts_concat(ids, sh.data_group))
+                ids_out.append(ids[:n_valid].astype(np.int32))
         if not ids_out:                      # empty request list
             return np.zeros((0, self.k), np.int32)
         return np.concatenate(ids_out, axis=0)
@@ -300,9 +326,27 @@ def _serve_loop(rec: Recommender, inp, out) -> int:
     return 0
 
 
+def _broadcast_lines(inp):
+    """The primary rank's request lines, yielded on every rank in
+    lockstep (a launcher gives all ranks one shared stdin, which several
+    readers would split between them)."""
+    import torch.distributed as dist
+
+    src = iter(inp) if dist.get_rank() == 0 else None
+    while True:
+        box = [next(src, None) if src is not None else None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        yield box[0]
+
+
 def main(argv=None, inp=None, out=None, device=None) -> int:
     """`python -m arec_torch.serve`: restore, print the banner, serve lines
-    from `inp` (stdin) to `out` (stdout). device: None = `cuda`."""
+    from `inp` (stdin) to `out` (stdout). device: None = `cuda`, or the
+    rank's `cuda:{LOCAL_RANK}` under `torchrun`. On a mesh every rank
+    serves the primary rank's input lines and, as arec's processes do,
+    writes every response to its own `out`."""
     import sys
 
     from arec_torch.cli.main import load_config, parse_args
@@ -313,7 +357,10 @@ def main(argv=None, inp=None, out=None, device=None) -> int:
           f"({'histories' if rec.is_seq else 'user ids'} on stdin; "
           f"!refresh / !step / !quit)",
           file=out or sys.stdout, flush=True)
-    return _serve_loop(rec, inp or sys.stdin, out or sys.stdout)
+    lines = inp or sys.stdin
+    if rec._sh is not None:
+        lines = _broadcast_lines(lines)
+    return _serve_loop(rec, lines, out or sys.stdout)
 
 
 if __name__ == "__main__":

@@ -324,10 +324,15 @@ def _encode_impl(params: Params, spec: EncoderSpec, attr_dev: dict, ids,
         offsets = spec.field_offsets()
         mrow = _take_rows(attr_dev["dense"], flat)           # [N, Σ vocab_f]
         mm_dtype = act_dtype if act_dtype is not None else torch.float32
+        # the dense prefix: a static slice on one device; a row-sharded
+        # table's lookup fetches it (`tables.sharded`'s `.head`)
+        head = getattr(lookup_fn, "head", None)
+        prefix = (table if head is None
+                  else head(table, spec.dense_region_rows))
         col = 0
         for f in spec.dense_fields:
             m = mrow[:, col:col + f.vocab_size]
-            sub = table[offsets[f.name]:offsets[f.name] + f.vocab_size]
+            sub = prefix[offsets[f.name]:offsets[f.name] + f.vocab_size]
             pooled[f.name] = acast(mm_f32(m, sub, mm_dtype))
             col += f.vocab_size
 
@@ -371,15 +376,17 @@ def encode_all_items(params: Params, spec: EncoderSpec, attr_dev: dict,
 
 def encode_all_items_with_bias(params: Params, spec: EncoderSpec,
                                attr_dev: dict, block: int = 8192,
-                               lookup_fn=dense_lookup):
+                               lookup_fn=dense_lookup, ids=None):
     """(V [num_items, dim], bias [num_items]) — with_bias counterpart of
-    `encode_all_items`."""
-    n = spec.schema.num_entities
+    `encode_all_items`; `ids` (1-D) encodes those entities instead of
+    all."""
     device = params["tables"][FUSED].device
+    if ids is None:
+        ids = torch.arange(spec.schema.num_entities, device=device)
     vs, bs = [], []
-    for s in range(0, n, block):
-        ids = torch.arange(s, min(s + block, n), device=device)
-        v, b = encode_with_bias(params, spec, attr_dev, ids, lookup_fn)
+    for s in range(0, ids.shape[0], block):
+        v, b = encode_with_bias(params, spec, attr_dev, ids[s:s + block],
+                                lookup_fn)
         vs.append(v)
         bs.append(b)
     return torch.cat(vs), torch.cat(bs)

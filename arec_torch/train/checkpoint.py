@@ -26,6 +26,14 @@ allocates no random tables or optimizer state; the saved tensors load
 straight onto the requested device. A table whose row count differs from
 the target's is sliced or zero-padded on axis 0 (arec's `_adapt_leaf`
 rule); any other mismatch raises.
+
+On a mesh (`rows=`) each rank restores its own shard: the file is
+memory-mapped on the host, each row-sharded leaf gathers the natural
+rows behind this rank's stored rows (its model-axis block, through the
+table's RowPerm under row_shard = "shuffle"; a row past the saved ones
+is zero, as `_adapt` pads), and only that block is copied to the device.
+The layout on disk stays natural, so a checkpoint written on one device
+restores onto any mesh shape and either placement.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import tempfile
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from arec_torch.train.step import TrainState
@@ -45,35 +54,49 @@ STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 
 
-def _to_host(tree):
-    """A copy of the tree with every tensor copied to host memory."""
+def _to(tree, device, copy: bool = False):
+    """The tree with every tensor on `device` (copied, with copy=True)."""
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: _to(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_host(v) for v in tree]
-    return tree.detach().to("cpu", copy=True)
+        return type(tree)(_to(v, device, copy) for v in tree)
+    return tree.detach().to(device, copy=copy)
 
 
-def _adapt(saved, target, path: str):
+def _adapt(saved, target, path: str, rows=None):
     """`saved` laid onto `target`'s structure: the same keys and lengths,
     each tensor of the target's dtype and shape, a differing row count
-    sliced or zero-padded on axis 0."""
+    sliced or zero-padded on axis 0. rows(keys) → the saved row behind
+    each of the target's rows (int64 numpy; ≥ the saved count: a zero
+    row), or None to keep that rule, for a rank's shard of a table."""
     if isinstance(target, dict):
         if not isinstance(saved, dict) or set(saved) != set(target):
             raise ValueError(
                 f"checkpoint/model structure mismatch at {path or '/'}: "
                 f"saved {sorted(saved) if isinstance(saved, dict) else type(saved).__name__} "
                 f"vs target {sorted(target)}")
-        return {k: _adapt(saved[k], target[k], f"{path}/{k}")
+        return {k: _adapt(saved[k], target[k], f"{path}/{k}", rows)
                 for k in target}
     if isinstance(target, (list, tuple)):
         if not isinstance(saved, (list, tuple)) or len(saved) != len(target):
             raise ValueError(f"checkpoint/model structure mismatch at {path}")
-        return type(target)(_adapt(s, t, f"{path}/{i}")
+        return type(target)(_adapt(s, t, f"{path}/{i}", rows)
                             for i, (s, t) in enumerate(zip(saved, target)))
     if saved.dtype != target.dtype:
         raise ValueError(f"checkpoint/model dtype mismatch at {path}: "
                          f"saved {saved.dtype} vs target {target.dtype}")
+    idx = None if rows is None else rows(tuple(path.strip("/").split("/")))
+    if idx is not None:
+        if len(idx) != target.shape[0] or (
+                saved.shape[1:] != target.shape[1:]):
+            raise ValueError(
+                f"checkpoint/model shape mismatch beyond row padding at "
+                f"{path}: saved {tuple(saved.shape)} vs a shard of "
+                f"{tuple(target.shape)}")
+        n = saved.shape[0]
+        out = saved[torch.from_numpy(np.minimum(idx, n - 1))]
+        out[torch.from_numpy(idx >= n)] = 0
+        return out
     if saved.shape == target.shape:
         return saved
     if saved.dim() != target.dim() or saved.dim() == 0 or (
@@ -128,7 +151,7 @@ class Checkpointer:
         if os.path.exists(os.path.join(self.path, str(step))):
             raise FileExistsError(f"checkpoint step {step} already exists "
                                   f"under {self.path}")
-        host = _to_host(state._asdict())
+        host = _to(state._asdict(), "cpu", copy=True)
         meta = {"data_pos": data_pos, "config": config_json}
         if not self.async_save:
             self._write(step, host, meta, t0)
@@ -181,20 +204,26 @@ class Checkpointer:
             pending.result()
 
     # ---- restore ----------------------------------------------------------
-    def restore(self, target: TrainState, device="cpu"):
-        """Load the latest step into `target`'s structure on `device`.
-        Returns (state, data_pos, config_json), or None without a step."""
+    def restore(self, target: TrainState, device="cpu", rows=None,
+                step=None):
+        """Load `step` (default the latest) into `target`'s structure on
+        `device`; `rows`: a rank's shard (see `_adapt`), read from the
+        memory-mapped file on the host. Returns (state, data_pos,
+        config_json), or None without a step."""
         self.drain()                 # an in-flight async save must win
-        step = self.latest_step()
+        step = self.latest_step() if step is None else step
         if step is None:
             return None
         d = os.path.join(self.path, str(step))
-        saved = torch.load(os.path.join(d, STATE_FILE), map_location=device,
+        saved = torch.load(os.path.join(d, STATE_FILE),
+                           map_location="cpu" if rows else device,
                            weights_only=True, mmap=True)
         with open(os.path.join(d, META_FILE)) as f:
             meta = json.load(f)
-        state = TrainState(**_adapt(saved, target._asdict(), ""))
-        return state, meta["data_pos"], meta["config"]
+        tree = _adapt(saved, target._asdict(), "", rows)
+        if rows:
+            tree = _to(tree, device)
+        return TrainState(**tree), meta["data_pos"], meta["config"]
 
 
 def abstract_like(state: TrainState) -> TrainState:

@@ -1,4 +1,5 @@
-"""Trainer (port of `arec/train/loop.py`), one device.
+"""Trainer (port of `arec/train/loop.py`): training on one device;
+evaluation, recommend mode and serving on one device or on a mesh.
 
 dataset load → model build → epoch loop with periodic eval (valid
 Recall@K), plateau LR decay and checkpoint → recommend mode emitting top-K
@@ -29,27 +30,55 @@ Config knobs arec's Trainer reads, each honoured or refused:
   eval_recall_target < 1  periodic eval through the approximate top-k
                           (`retrieval.mips.approx_max_k`), as arec's;
                           serve_recall_target < 1 serves through it.
-  a mesh (data·model > 1) raises (ROADMAP A7), in the specs' from_config.
+  a mesh (data·model > 1)   serves and evaluates (`Trainer(serve_only=
+                          True)`, `evaluate()`, `recommend()`), one rank
+                          per process; training on it raises
+                          NotImplementedError (ROADMAP A7.3, A7.4).
+
+On a mesh (`_MeshServing`) each rank holds its "model" row block of every
+table (padded to a model-axis multiple, in RowPerm order under row_shard
+= "shuffle"; checkpoints stay natural, so a single-device checkpoint
+serves on any mesh), the replicated dense weights, and its "data" slab of
+each eval or serving batch. Queries read their rows through the masked
+lookup (`tables.sharded.make_masked_lookup`: the same ids on every model
+rank); each rank encodes its own contiguous item range, from the item
+table gathered whole for the encode (`gather_rows`), so the item matrix
+is born row-sharded; the top-k is `retrieval.mips.make_sharded_topk`,
+and hit counts are summed over "data".
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import time
 
 import torch
+import torch.distributed as dist
 
 from arec_torch import resolve_device
-from arec_torch.config import Config
+from arec_torch.config import Config, refuse_mesh_training
 from arec_torch.data.dataset import eval_batches, mf_batches, seq_batches
 from arec_torch.data.io import load_or_prepare
-from arec_torch.data.prefetch import copy_batch, prefetch, to_device
+from arec_torch.data.prefetch import prefetch, to_device
+from arec_torch.dist.global_io import all_hosts_concat, shard_from_hosts
+from arec_torch.dist.mesh import is_primary, make_mesh, multihost_init
+from arec_torch.dist.specs import (
+    DATA_AXIS, mesh_coords, table_role, tree_leaves_with_keys,
+    tree_map_with_keys,
+)
 from arec_torch.losses.sampling import make_pop
 from arec_torch.models import mf as mf_mod
 from arec_torch.models import seq as seq_mod
+from arec_torch.retrieval.mips import make_sharded_topk
 from arec_torch.tables.engine import (
     attrs_to_device, dense_lookup,
+)
+from arec_torch.tables.layout import RowPerm
+from arec_torch.tables.sharded import (
+    gather_rows, make_masked_lookup, make_perm_dense_lookup, round_up_rows,
+    shard_row_index,
 )
 from arec_torch.train import sparse as sparse_mod
 from arec_torch.train.checkpoint import Checkpointer, abstract_like
@@ -81,40 +110,172 @@ def build_model(cfg: Config, device):
     return ds, spec, item_dev, user_dev
 
 
-def _item_latents(cfg: Config, spec, params, item_dev):
-    """All-item latent matrix + bias; serve_latents_dtype="compute" pre-casts
-    the matrix to the compute dtype once (scores are unchanged: top-k casts
-    its operands anyway)."""
+def _table_roles(is_seq: bool, spec) -> dict[str, tuple[int, int]]:
+    """Lookup roles → (total_rows, dense_prefix_rows) of their table, as
+    arec's `Trainer._table_roles`."""
+    if is_seq:
+        roles = {"item": (spec.item_in.total_rows,
+                          spec.item_in.dense_region_rows)}
+        if spec.user is not None:
+            roles["user"] = (spec.user.total_rows,
+                             spec.user.dense_region_rows)
+        if not spec.tie_output:
+            roles["out"] = (spec.vocab + 1, 0)
+        return roles
+    return {"user": (spec.user.total_rows, spec.user.dense_region_rows),
+            "item": (spec.item.total_rows, spec.item.dense_region_rows)}
+
+
+class _MeshServing:
+    """A rank's view of the ("data", "model") mesh for evaluation and
+    serving: the process group and mesh, the tables' RowPerms (row_shard
+    = "shuffle" with lookup = "alltoall", as arec builds them; arec's
+    "gspmd" lookup keeps tables natural), and the queries' per-role
+    lookups (`lookups`: the masked gather, the same ids on every model
+    rank)."""
+
+    def __init__(self, cfg: Config, spec, is_seq: bool, device):
+        mc = cfg.mesh
+        multihost_init(device)
+        self.mesh = make_mesh(mc.data, mc.model, device)
+        _, self.n_data, self.m, self.t = mesh_coords(self.mesh)
+        self.data_group = self.mesh.get_group(DATA_AXIS)
+        self.is_seq, self.spec = is_seq, spec
+        roles = _table_roles(is_seq, spec)
+        self.perms: dict[str, RowPerm] = {}
+        if mc.lookup == "alltoall" and mc.row_shard == "shuffle":
+            for role, (rows, prefix) in roles.items():
+                p = RowPerm.for_rows(rows, prefix)
+                if p is not None:
+                    self.perms[role] = p
+        self.lookups = {r: make_masked_lookup(self.mesh, self.perms.get(r))
+                        for r in roles}
+
+    def sharded(self, keys, sparse: bool) -> str | None:
+        """The role of a row-sharded state leaf, else None: every table of
+        the params; the optimizer state's tables too, except the sparse
+        state's (1, 1) placeholders (arec's sparse_mesh_state_pspecs)."""
+        role = table_role(keys)
+        if role is None or (keys[0] == "opt_state" and sparse):
+            return None
+        return role
+
+    def abstract(self, state, sparse: bool):
+        """The state's shapes with each row-sharded leaf cut to this rank's
+        block of its model-axis-padded rows (meta tensors)."""
+        def cut(keys, leaf):
+            if self.sharded(keys, sparse) is None:
+                return leaf
+            rows = round_up_rows(leaf.shape[0], self.t) // self.t
+            return torch.empty((rows,) + tuple(leaf.shape[1:]),
+                               dtype=leaf.dtype, device="meta")
+        return type(state)(**tree_map_with_keys(cut, state._asdict()))
+
+    def row_index(self, natural_rows: dict, sparse: bool):
+        """For the checkpoint restore: keys → the natural row behind each
+        of this rank's stored rows (`shard_row_index`), None for a
+        replicated leaf. natural_rows: keys → the leaf's unpadded rows."""
+        def rows(keys):
+            role = self.sharded(keys, sparse)
+            if role is None:
+                return None
+            return shard_row_index(natural_rows[keys], self.t, self.m,
+                                   self.perms.get(role))
+        return rows
+
+    def item_view(self, params):
+        """(params, lookup_fn, out_lookup) for the item-latent encode: the
+        item side's table gathered whole over "model" (`gather_rows`),
+        read through its RowPerm when it is stored shuffled."""
+        def lookup(role):
+            p = self.perms.get(role)
+            return dense_lookup if p is None else make_perm_dense_lookup(p)
+
+        def whole(enc):
+            return {**enc, "tables": {k: gather_rows(t, self.mesh)
+                                      for k, t in enc["tables"].items()}}
+        if not self.is_seq:
+            return {**params, "item": whole(params["item"])}, \
+                lookup("item"), None
+        if self.spec.tie_output:
+            return {**params, "item_in": whole(params["item_in"])}, \
+                lookup("item"), None
+        return {**params, "item_out": gather_rows(params["item_out"],
+                                                  self.mesh)}, \
+            dense_lookup, lookup("out")
+
+    def item_ids(self, vocab: int, device) -> torch.Tensor:
+        """This rank's contiguous item range of the model-axis-padded item
+        matrix, pad positions as the pad id `vocab`."""
+        vs = -(-vocab // self.t)
+        ids = torch.arange(self.m * vs, (self.m + 1) * vs, device=device)
+        return ids.clamp(max=vocab).to(torch.int32)
+
+
+def _item_latents(cfg: Config, spec, params, item_dev, sh=None):
+    """The item latent matrix + bias: every item on one device; on a mesh
+    (`sh`) this rank's row block of it, padded as `pad_item_shards` pads
+    (zero latents, bias −1e9). serve_latents_dtype="compute" pre-casts
+    the matrix to the compute dtype once (scores are unchanged: top-k
+    casts its operands anyway)."""
+    ids, lk, out_lk = None, dense_lookup, None
+    if sh is not None:
+        vocab = (spec.item.schema.num_entities
+                 if isinstance(spec, mf_mod.MFSpec) else spec.vocab)
+        ids = sh.item_ids(vocab, _device_of(params))
+        params, lk, out_lk = sh.item_view(params)
     if isinstance(spec, mf_mod.MFSpec):
-        v, b = mf_mod.mf_item_latents(params, spec, item_dev)
+        v, b = mf_mod.mf_item_latents(params, spec, item_dev, lookup_fn=lk,
+                                      ids=ids)
     else:
-        v, b = seq_mod.seq_item_latents(params, spec, item_dev)
+        v, b = seq_mod.seq_item_latents(params, spec, item_dev,
+                                        lookup_fn=lk, out_lookup=out_lk,
+                                        ids=ids)
+    if ids is not None:
+        pad = ids >= vocab
+        v = torch.where(pad[:, None], 0.0, v)
+        b = torch.where(pad, -1e9, b)
     if cfg.train.serve_latents_dtype == "compute":
         v = v.to(spec.dtype)
     return v, b
 
 
-def _query_fn(spec, params, item_dev, user_dev, batch):
+def _device_of(params):
+    return next(leaf for _, leaf in tree_leaves_with_keys(params)).device
+
+
+def _query_fn(spec, params, item_dev, user_dev, batch, sh=None):
     """Eval / serving query encode: MF's user latents, or the final
-    recurrent state after each history."""
+    recurrent state after each history; on a mesh through the masked
+    lookups."""
+    lks = {} if sh is None else sh.lookups
     if isinstance(spec, mf_mod.MFSpec):
-        return mf_mod.mf_user_latents(params, spec, user_dev, batch["user"])
-    return seq_mod.seq_final_state_full(params, spec, item_dev, user_dev,
-                                        batch)
+        return mf_mod.mf_user_latents(params, spec, user_dev, batch["user"],
+                                      lookup_fn=lks.get("user",
+                                                        dense_lookup))
+    return seq_mod.seq_final_state_full(
+        params, spec, item_dev, user_dev, batch,
+        lookup_fn=lks.get("item", dense_lookup), lookup_fns=lks or None)
 
 
-def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int):
+def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
     """Per-batch serving step: queries → seen-masked top-k, exact or, with
     serve_recall_target < 1, approximate. Like arec's single-device step
     it passes no compute dtype to the top-k, so the scores take bf16
-    operands even when the model computes in f32."""
+    operands even when the model computes in f32; on a mesh it is arec's
+    sharded top-k in the model's compute dtype, over this rank's slab."""
     target = cfg.train.serve_recall_target
     mem = cfg.train.serve_score_mem_mb
+    if sh is None:
+        topk = functools.partial(topk_with_mask, k=k, recall_target=target,
+                                 score_mem_mb=mem)
+    else:
+        topk = make_sharded_topk(sh.mesh, k=k, compute_dtype=spec.dtype,
+                                 recall_target=target, score_mem_mb=mem)
 
     def step(params, v, b, batch, seen):
-        q = _query_fn(spec, params, item_dev, user_dev, batch)
-        return topk_with_mask(q, v, b, seen, k=k, recall_target=target,
-                              score_mem_mb=mem)
+        q = _query_fn(spec, params, item_dev, user_dev, batch, sh)
+        return topk(q, v, b, seen)
     return step
 
 
@@ -125,7 +286,14 @@ class Trainer:
         state; at XING scale those are gigabytes that the restore would
         overwrite) and no step function is built. evaluate(), recommend()
         and the serving helpers work as usual; train() raises.
-        device: where to train; None = `cuda` (raises if there is none)."""
+        device: where to run; None = `cuda`, or under a launcher the rank's
+        `cuda:{LOCAL_RANK}` (raises if there is none).
+
+        On a mesh (cfg.mesh data × model > 1) only serve_only=True builds:
+        this process is one rank of the process group (`torchrun`, or one
+        its caller initialised), and holds its shard of the state."""
+        if not serve_only:
+            refuse_mesh_training(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serve_only = serve_only
@@ -134,6 +302,8 @@ class Trainer:
         self.ds, self.spec, self.item_dev, self.user_dev = build_model(
             cfg, self.device)
         self.lookup = dense_lookup   # also for compact_table_grads
+        self.sh = (_MeshServing(cfg, self.spec, self.is_seq, self.device)
+                   if cfg.mesh.data * cfg.mesh.model > 1 else None)
 
         # sampler proposal, as arec's (`arec/train/loop.py:204-225`)
         if t.batch_ht and t.loss not in ("mw", "bbpr"):
@@ -165,6 +335,10 @@ class Trainer:
         else:
             self.state = init_state(params, self.opt)
         del params
+        self._natural_rows = {keys: leaf.shape[0] for keys, leaf in
+                              tree_leaves_with_keys(self.state._asdict()) if leaf.dim()}
+        if self.sh is not None:
+            self.state = self.sh.abstract(self.state, self.sparse)
         if not serve_only:
             if self.sparse:
                 self.step_fn = sparse_mod.make_sparse_train_step(
@@ -221,20 +395,44 @@ class Trainer:
 
     def _item_latents(self, params=None):
         params = self._eval_params() if params is None else params
-        return _item_latents(self.cfg, self.spec, params, self.item_dev)
+        return _item_latents(self.cfg, self.spec, params, self.item_dev,
+                             self.sh)
 
     def _query_fn(self, params, batch):
         return _query_fn(self.spec, params, self.item_dev, self.user_dev,
-                         batch)
+                         batch, self.sh)
 
     def _stage_eval(self, batch):
-        """An eval batch and its users' seen slab, on the device. The copy
-        is synchronous: eval batches are staged on the calling thread, one
-        at a time, with no step queued behind which to hide it."""
-        tb = copy_batch(batch, self.device)
-        seen = torch.from_numpy(self.ds.seen_items[batch["user"]]).to(
+        """An eval batch and its users' seen slab on the device: the whole
+        batch, or on a mesh this rank's "data" slab of it. The copy is
+        synchronous: eval batches are staged on the calling thread, one at
+        a time, with no step queued behind which to hide it."""
+        tb = shard_from_hosts({**batch, "seen": self.ds.seen_items[
+            batch["user"]]}, None if self.sh is None else self.sh.mesh,
             self.device)
-        return tb, seen
+        return tb, tb.pop("seen")
+
+    def _eval_step(self, k: int, target: float):
+        """Per-batch (hits, count) for Recall@K; on a mesh through the
+        sharded top-k in the model's compute dtype, as arec's mesh eval
+        step, with the counts summed over "data"."""
+        if self.sh is None:
+            def step(params, v, b, tb, seen):
+                return recall_hits(self._query_fn(params, tb), v, b, seen,
+                                   tb["pos_item"], tb["valid"], k=k,
+                                   recall_target=target)
+            return step
+        topk = make_sharded_topk(self.sh.mesh, k=k,
+                                 compute_dtype=self.spec.dtype,
+                                 recall_target=target)
+
+        def mesh_step(params, v, b, tb, seen):
+            _, ids = topk(self._query_fn(params, tb), v, b, seen)
+            hit = (ids == tb["pos_item"][:, None]).any(dim=1).float()
+            hc = torch.stack([(hit * tb["valid"]).sum(), tb["valid"].sum()])
+            dist.all_reduce(hc, group=self.sh.data_group)
+            return hc[0], hc[1]
+        return mesh_step
 
     @torch.no_grad()
     def evaluate(self, k: int | None = None, exact: bool = False) -> float:
@@ -249,14 +447,12 @@ class Trainer:
         hits = total = 0.0
         n = 0
         cap = 0 if exact else t.eval_max_batches
-        target = 1.0 if exact else t.eval_recall_target
+        step = self._eval_step(k, 1.0 if exact else t.eval_recall_target)
         L = self.spec.pack_len if self.is_seq else 0
         for batch in eval_batches(self.ds, t.eval_batch_size,
                                   max_seq_len=L):
             tb, seen = self._stage_eval(batch)
-            h, c = recall_hits(self._query_fn(params, tb), v, b, seen,
-                               tb["pos_item"], tb["valid"], k=k,
-                               recall_target=target)
+            h, c = step(params, v, b, tb, seen)
             hits += float(h)
             total += float(c)
             n += 1
@@ -267,24 +463,27 @@ class Trainer:
     @torch.no_grad()
     def recommend(self, k: int | None = None, out_path: str | None = None):
         """Top-K lists for every eval user; with out_path, also the
-        submission file, one `user\\tid,id,...` line per user."""
+        submission file, one `user\\tid,id,...` line per user. On a mesh
+        every rank returns the whole list (each batch's slabs gathered over
+        "data"), and only the primary rank writes the file."""
         t = self.cfg.train
         k = k or t.eval_topk
         params = self._eval_params()
         v, b = self._item_latents(params)
         step = _serve_step(self.cfg, self.spec, self.item_dev, self.user_dev,
-                           k)
+                           k, self.sh)
         rows = []
         L = self.spec.pack_len if self.is_seq else 0
         for batch in eval_batches(self.ds, t.eval_batch_size,
                                   max_seq_len=L):
             tb, seen = self._stage_eval(batch)
             _, ids = step(params, v, b, tb, seen)
-            for u, row, ok in zip(batch["user"], ids.cpu().numpy(),
-                                  batch["valid"]):
+            ids = (ids.cpu().numpy() if self.sh is None else
+                   all_hosts_concat(ids, self.sh.data_group))
+            for u, row, ok in zip(batch["user"], ids, batch["valid"]):
                 if ok:
                     rows.append((int(u), row.tolist()))
-        if out_path:
+        if out_path and is_primary():
             with open(out_path, "w") as f:
                 for u, items in rows:
                     f.write(f"{u}\t{','.join(map(str, items))}\n")
@@ -308,10 +507,14 @@ class Trainer:
         that exists must restore (training a fresh model over a populated
         train_dir would corrupt the run). The current state is dropped
         first, so the card never holds two."""
-        if self.ckpt.latest_step() is None:
+        step = self.latest_step()
+        if step is None:
             return
         self.state = abstract_like(self.state)
-        self.state, data_pos, _ = self.ckpt.restore(self.state, self.device)
+        rows = (None if self.sh is None else
+                self.sh.row_index(self._natural_rows, self.sparse))
+        self.state, data_pos, _ = self.ckpt.restore(self.state, self.device,
+                                                    rows=rows, step=step)
         self.start_epoch = int(data_pos.get("epoch", 0))
         self.start_step_in_epoch = int(data_pos.get("step_in_epoch", 0))
         self._resume = {"prev_loss": data_pos.get("prev_loss"),
@@ -321,6 +524,17 @@ class Trainer:
         print(f"[ckpt] restored step {int(self.state.step)} "
               f"(epoch {self.start_epoch}+{self.start_step_in_epoch} "
               f"steps)", flush=True)
+
+    def latest_step(self):
+        """The newest complete checkpoint step; on a mesh the primary
+        rank's reading, so every rank restores the same step even while a
+        save lands."""
+        step = self.ckpt.latest_step()
+        if self.sh is not None:
+            box = [step]
+            dist.broadcast_object_list(box, src=0)
+            step = box[0]
+        return step
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

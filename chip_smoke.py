@@ -59,6 +59,16 @@
    --out`; c4's LSTM through the Trainer (16 steps, one 4 GB save) and
    served from its checkpoint. Launches of each kernel are counted over
    these runs.
+   Then the same checkpoints on a device mesh: the MF one on
+   syn_xing_full's own 2 x 4 mesh (row_shard "shuffle") and c4's on 2 x 2,
+   each rank a gloo process sharing the one card (NCCL refuses two ranks
+   on one GPU), each through `Recommender(cfg)`; every rank's lists equal
+   the one-card Recommender's up to ties, and the LSTM forward kernel
+   runs on every rank of c4's mesh. A one-rank NCCL group then takes the
+   mesh paths' collectives at syn_xing_full's full width (1 x 1 mesh): the
+   exchange and masked lookups of a training batch's gather rows, bit for
+   bit against `dense_lookup`, and the sharded top-k over 1,304,126 items
+   against `topk_with_mask` up to ties, each timed beside it.
 8. The host input path at c4's shape on the twin: `seq_batches` and
    `eval_batches` packed by the C++ packer against the numpy twin (equal
    outputs, ms a batch each); the old pageable `.to()` against the pinned
@@ -145,8 +155,9 @@ TRAIN_STEPS = 20
 EVAL_BATCHES = 4
 
 XING = os.path.join(ROOT, "configs", "syn_xing_full.json")
-# syn_xing_full's MF model on one card (its mesh is the multi-GPU port's,
-# ROADMAP A7). The interaction count shapes no tensor (1M interactions
+# syn_xing_full's MF model on one card (it trains there: training on its
+# own 2 x 4 mesh is ROADMAP A7.3; its checkpoint is served on that mesh in
+# the Trainer phase). The interaction count shapes no tensor (1M interactions
 # still give 93 batches of 8192), so it is cut to keep the host-side prep
 # short; the user count shapes the user table and stays.
 MF_SETS = {"mesh.data": 1, "mesh.model": 1, "data.data_dir": DATA_DIR}
@@ -1868,8 +1879,15 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         writes a newer one, `refresh()` (peak memory against the first
         restore's), and `--recommend --out`;
     (d) c4's LSTM through the Trainer (16 steps, one save), served from
-        its checkpoint.
-    Returns {kernel name: launches} over the Trainer runs."""
+        its checkpoint;
+    (e) the MF checkpoint of (c) served on syn_xing_full's own 2 x 4 mesh
+        (row_shard "shuffle"): 8 gloo ranks sharing the card, each through
+        `Recommender(cfg)`, 256 users and 3 request-loop lines, lists equal
+        to the one-card Recommender's up to ties (`mesh_serve`);
+    (f) c4's checkpoint of (d) on a 2 x 2 mesh: 4 ranks, 8 requests
+        padded to 256, the LSTM forward kernel launched on every rank.
+    Returns ({kernel name: launches} over the Trainer runs, {"mf", "c4":
+    {kernel: launches summed over the mesh ranks}}, the same per rank)."""
     import itertools
     import shutil
     import tempfile
@@ -1889,6 +1907,7 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
     log(f"trainer phase under {root} ({free_gb:.1f} GB free on its disk)")
     counters = all_counters()
     launches = {k: 0 for k in counters}
+    mesh, per_rank = {}, {}
 
     def counted(fn, *args, **kw):
         for f in counters.values():                  # ---- the main path
@@ -2040,7 +2059,8 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         ids64 = rec.for_users(users, seen=seen)
         assert np.array_equal(ids64, mem), "refreshed != trainer's state"
         assert not np.array_equal(ids64, ids48)
-        fresh = Recommender(cfg, device=dev).for_users(users, seen=seen)
+        one_mf = Recommender(cfg, device=dev)
+        fresh = one_mf.for_users(users, seen=seen)
         assert np.array_equal(ids64, fresh), "refreshed != fresh"
         assert refresh_peak <= 1.05 * restore_peak, (refresh_peak,
                                                      restore_peak)
@@ -2067,6 +2087,16 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         assert n_rows == result["users"] > 0, (n_rows, result)
         log(f"    --recommend --out: {n_rows} rows (every eval user) in "
             f"{rec_s:.2f} s (restore included); {result}")
+        # ---- (e) the step-64 checkpoint on syn_xing_full's own mesh ------
+        from arec_torch.serve import _auto_width, _pad_seen
+        mesh["mf"], per_rank["mf"] = mesh_serve(
+            "(e) syn_xing_full's MF from the step-64 checkpoint", dev,
+            root, mf_argv(mf_dir, 64), MESH_MF,
+            {"users": users, "seen": seen, "lines": lines}, one_mf,
+            [({"user": users, "seen": _pad_seen(seen, len(users),
+                                                _auto_width(seen))},
+              len(users))], fresh)
+        del one_mf
         shutil.rmtree(mf_dir)
         free()
 
@@ -2094,7 +2124,8 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
             assert used_d.get(k, 0) > 0, (k, used_d)
         hists = [ds4.hist_items[u][: ds4.hist_lengths[u]].tolist()
                  for u in range(8)]
-        served = Recommender(cfg4, device=dev).from_histories(hists)
+        one4 = Recommender(cfg4, device=dev)
+        served = one4.from_histories(hists)
         mem = Recommender(cfg4, tr.state.params,
                           device=dev).from_histories(hists)
         assert served.shape == (8, cfg4.train.eval_topk)
@@ -2106,9 +2137,270 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
             f"Recommender(cfg).from_histories from the checkpoint equals the "
             f"trainer's in-memory state on {len(hists)} histories")
         del tr
+        free()
+        # ---- (f) c4's checkpoint on a 2 x 2 mesh: B1 on every rank --------
+        mesh["c4"], per_rank["c4"] = mesh_serve(
+            "(f) c4's LSTM from its step-16 checkpoint, 8 requests padded "
+            "to 256,", dev, root, ["--config", C4] + [
+                a for k, v in c4_sets.items() for a in ("--set", f"{k}={v}")],
+            MESH_C4, {"histories": hists}, one4,
+            list(one4._history_batches(hists)), served)
+        if dev.type == "cuda":    # (a CPU rehearsal launches no kernel)
+            assert all(n > 0 for n in per_rank["c4"]["lstm_scan_fwd"]), (
+                per_rank)
+        del one4
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, mesh, per_rank
+
+
+# ---- serving on a device mesh -----------------------------------------
+
+# the meshes of the card run: syn_xing_full's own 2 x 4 (row_shard
+# "shuffle", its config's) and c4's LSTM on 2 x 2, each as gloo ranks that
+# share the one card (NCCL refuses two ranks on one GPU)
+MESH_MF = (2, 4)
+MESH_C4 = (2, 2)
+TIE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def tie_scores(q, v, b, seen, ids):
+    """float64 masked scores of `ids` [B, k] (−1 ids read row 0): query
+    and item rows rounded to bf16, as both top-ks round their operands,
+    plus the bias, −1e9 per seen occurrence."""
+    import torch
+    ids = torch.as_tensor(ids, device=q.device).long()
+    safe = ids.clamp_min(0)
+    s = torch.einsum("bkd,bd->bk", v[safe].to(torch.bfloat16).double(),
+                     q.to(torch.bfloat16).double()) + b[safe].double()
+    seen = torch.as_tensor(seen, device=q.device).long()
+    hits = (ids[:, :, None] == seen[:, None, :]).sum(-1)
+    return (s - 1e9 * hits).cpu().numpy()
+
+
+def lists_match(one, batches, got, want):
+    """Compare two [N, k] list sets up to ties: at each rank the two ids'
+    scores agree within TIE_TOL, and no list repeats an id. `batches`:
+    the one-card Recommender's (numpy batch, n) pairs for the same
+    requests. Returns the number of lists that differ at all."""
+    import numpy as np
+    import torch
+    from arec_torch.train.loop import _query_fn
+    v, b = one._vb
+    differ, s = 0, 0
+    for batch, n in batches:
+        tb = {k: torch.from_numpy(x).to(one.device)
+              for k, x in batch.items() if k != "seen"}
+        g, w = got[s:s + n], want[s:s + n]
+        rows = np.flatnonzero((g != w).any(axis=1))
+        if rows.size:
+            with torch.inference_mode():
+                q = _query_fn(one.spec, one._params, one._item_dev,
+                              one._user_dev, tb)[:n]
+            seen = batch["seen"][:n]
+            np.testing.assert_allclose(tie_scores(q, v, b, seen, g)[rows],
+                                       tie_scores(q, v, b, seen, w)[rows],
+                                       **TIE_TOL)
+            assert all(len(set(r.tolist())) == r.size for r in g[rows])
+        differ += rows.size
+        s += n
+    assert s == len(want)
+    return differ
+
+
+def _mesh_rank(rank, world, out_dir, job):
+    """One gloo rank of the card's mesh run (torch.multiprocessing): the
+    user's entry point, `Recommender(cfg)` from the checkpoint under
+    job["argv"]'s train_dir, on the shared card; serves the job's requests
+    and, for MF, its request-loop lines; saves its lists, its launches per
+    kernel and its timings."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
+        rank=rank, world_size=world)
+    try:
+        from arec_torch.cli.main import load_config, parse_args
+        from arec_torch.serve import Recommender, _serve_loop
+        counters = all_counters()
+        cfg = load_config(parse_args(job["argv"]))
+        t0 = time.perf_counter()
+        rec = Recommender(cfg, device=dev)
+        sync()
+        startup_s = time.perf_counter() - t0
+        for f in counters.values():                  # ---- the main path
+            f.launches = 0
+        t0 = time.perf_counter()
+        if "users" in job:
+            ids = rec.for_users(job["users"], seen=job["seen"])
+            out = io.StringIO()
+            _serve_loop(rec, io.StringIO("\n".join(job["lines"]) + "\n"),
+                        out)
+            answers = out.getvalue().strip().split("\n")
+        else:
+            ids = rec.from_histories(job["histories"])
+            answers = []
+        sync()
+        serve_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if dev.type == "cuda" else float("nan"))
+        torch.save({"ids": ids, "answers": answers, "launches": launches,
+                    "startup_s": startup_s, "serve_s": serve_s,
+                    "step": rec._restored_step, "peak_gib": peak},
+                   os.path.join(out_dir, f"out.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serve(what, dev, root, argv, shape, job, one, batches, want):
+    """Serve `job` on a data × model mesh of gloo ranks sharing the card,
+    each rank through `Recommender(cfg)` from the checkpoint; every rank's
+    lists must equal the one-card Recommender's (`one`, `want`) up to
+    ties. Returns {kernel: launches summed over the ranks}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    world = shape[0] * shape[1]
+    out_dir = tempfile.mkdtemp(prefix="mesh-", dir=root)
+    argv = argv + [a for k, v in {"mesh.data": shape[0],
+                                  "mesh.model": shape[1]}.items()
+                   for a in ("--set", f"{k}={v}")]
+    try:
+        t0 = time.perf_counter()
+        # ranks share the card: "cuda:0" for each, not its LOCAL_RANK's
+        job = {**job, "argv": argv,
+               "device": "cuda:0" if dev.type == "cuda" else str(dev)}
+        mp.spawn(_mesh_rank, args=(world, out_dir, job), nprocs=world)
+        wall_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(out_dir, f"out.{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in res:
+        assert np.array_equal(r["ids"], res[0]["ids"])
+        assert r["answers"] == res[0]["answers"]
+    differ = lists_match(one, batches, res[0]["ids"], want)
+    launches = {k: sum(r["launches"][k] for r in res) for k in
+                res[0]["launches"]}
+    per_rank = {k: [r["launches"][k] for r in res] for k in launches
+                if launches[k]}
+    log(f"{what} on a {shape[0]} x {shape[1]} mesh of {world} gloo ranks "
+        f"sharing the card (not a multi-GPU measurement): every rank "
+        f"returns the same {res[0]['ids'].shape} lists, equal to the "
+        f"one-card Recommender's up to ties ({differ} lists differ at a "
+        f"tie); restored step {res[0]['step']}; launches per rank "
+        f"{per_rank}; loop lines {res[0]['answers'][1:]}")
+    log(f"  gloo ranks sharing one card, host wall: spawn to last rank "
+        f"{wall_s:.2f} s; Recommender startup per rank "
+        f"{[round(r['startup_s'], 2) for r in res]} s; serving per rank "
+        f"{[round(r['serve_s'], 3) for r in res]} s; peak device memory "
+        f"per rank {[round(r['peak_gib'], 3) for r in res]} GiB")
+    return launches, per_rank
+
+
+def mesh_nccl_phase(dev, sets=MF_SETS, cuts=MF_CUTS, n_queries=256):
+    """The mesh paths' collectives on a one-rank NCCL group at
+    syn_xing_full's full width, through a 1 x 1 mesh handed to the sharded
+    functions: the exchange lookup and the masked lookup of one training
+    batch's gather rows (8192 users and their 8192 positive items, through
+    each encoder's attribute maps) into the item [1304126, 129] and user
+    [1504123, 128] f32 tables in their shuffled layout, bit for bit against
+    `dense_lookup` on the natural tables; the sharded top-k over the
+    1,304,126-item matrix for 256 queries against `topk_with_mask`, up to
+    ties. Prints ms for each beside the single-device call."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from arec_torch.data.dataset import mf_batches
+    from arec_torch.dist.mesh import make_mesh
+    from arec_torch.dist.specs import shard_rows
+    from arec_torch.models.mf import MFSpec
+    from arec_torch.retrieval.mips import make_sharded_topk
+    from arec_torch.tables.engine import (
+        attrs_to_device, dense_lookup, gather_row_ids,
+    )
+    from arec_torch.tables.layout import RowPerm
+    from arec_torch.tables.sharded import (
+        make_masked_lookup, make_sharded_lookup,
+    )
+    from arec_torch.train.evalu import topk_with_mask
+
+    cfg, ds, _ = load_mf(sets, cuts)
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    batch = next(mf_batches(ds, cfg.train.batch_size, cfg.train.seed, 0))
+    os.makedirs(os.path.join(ROOT, "_train"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke-nccl-",
+                             dir=os.path.join(ROOT, "_train"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        for role, enc, key in (("item", spec.item, "pos_item"),
+                               ("user", spec.user, "user")):
+            attrs = (ds.item_attrs if role == "item" else ds.user_attrs)
+            adev = attrs_to_device(attrs.restrict(enc.schema), enc, dev)
+            ids = gather_row_ids(enc, adev, torch.from_numpy(
+                batch[key]).to(dev))
+            ids = torch.where(ids < enc.total_rows, ids, 0)   # encode's row 0
+            table = torch.randn(enc.total_rows, enc.width, generator=g,
+                                device=dev)
+            perm = RowPerm.for_rows(enc.total_rows, enc.dense_region_rows)
+            shard = shard_rows(perm.permute_table(table), mesh)
+            want = dense_lookup(table, ids)
+            exch = make_sharded_lookup(mesh, cfg.mesh.capacity_factor,
+                                       dedup=cfg.mesh.dedup, perm=perm)
+            masked = make_masked_lookup(mesh, perm)
+            with torch.inference_mode():
+                assert torch.equal(exch(shard, ids), want), role
+                assert torch.equal(masked(shard, ids), want), role
+                t = {"exchange": cuda_ms(lambda: exch(shard, ids), 10),
+                     "masked": cuda_ms(lambda: masked(shard, ids), 10),
+                     "dense_lookup": cuda_ms(lambda: dense_lookup(table, ids),
+                                             10)}
+            log(f"mesh (a) one-rank NCCL group, {role} table "
+                f"[{enc.total_rows}, {enc.width}] f32 in its shuffled "
+                f"layout, {ids.numel()} gather rows of a batch of "
+                f"{cfg.train.batch_size}: exchange (2 all_to_all_single + "
+                f"all_gather) and masked (all_reduce) lookups bit-equal to "
+                f"dense_lookup; ms {t}")
+            del table, shard, want
+        v_items = spec.item.schema.num_entities
+        lat = torch.randn(v_items, spec.item.dim, generator=g, device=dev)
+        bias = torch.randn(v_items, generator=g, device=dev) * 0.1
+        users = ds.valid_users[:n_queries]
+        q = torch.randn(n_queries, spec.item.dim, generator=g, device=dev)
+        seen = torch.from_numpy(ds.seen_items[users]).to(dev)
+        topk = make_sharded_topk(mesh, k=30)
+        with torch.inference_mode():
+            got = topk(q, lat, bias, seen)
+            want = topk_with_mask(q, lat, bias, seen, k=30)
+            torch.testing.assert_close(got[0], want[0], **TIE_TOL)
+            s_got, s_want = (tie_scores(q, lat, bias, seen, x[1])
+                             for x in (got, want))
+            np.testing.assert_allclose(s_got, s_want, **TIE_TOL)
+            differ = int((got[1] != want[1]).any(dim=1).sum())
+            t = {"sharded_topk": cuda_ms(lambda: topk(q, lat, bias, seen), 5),
+                 "topk_with_mask": cuda_ms(
+                     lambda: topk_with_mask(q, lat, bias, seen, k=30), 5)}
+        log(f"mesh (a) sharded top-30 over V = {v_items} (D "
+            f"{spec.item.dim}) for {n_queries} queries, seen width "
+            f"{seen.shape[1]}, through all_gather of the candidates: equal "
+            f"to topk_with_mask up to ties ({differ} lists differ at a "
+            f"tie); ms {t}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 # ---- the host input path, raw-data prep and the approximate top-k -------
@@ -2532,6 +2824,7 @@ def raw_data_phase(dev, root=None, xing=XING_RAW, ml1m=ML1M_RAW, steps=16,
     root = tempfile.mkdtemp(prefix="chip_smoke_raw-", dir=base)
     counters = all_counters()
     launches = {k: 0 for k in counters}
+    mesh, per_rank = {}, {}
 
     def counted(fn, *args, **kw):
         for f in counters.values():                  # ---- the main path
@@ -2731,9 +3024,11 @@ def main() -> int:
     free()
     trained["mf"], writeback, bare_eps = mf_train_phase(dev)
     free()
-    through_trainer = trainer_phase(dev)
+    through_trainer, through_mesh, mesh_per_rank = trainer_phase(dev)
     log(f"MF examples/s: bare sparse steps {bare_eps:.1f} (the MF phase) "
         f"beside the Trainer's loop in the metrics records above")
+    free()
+    mesh_nccl_phase(dev)
     free()
     input_path_phase(dev)
     free()
@@ -2896,8 +3191,13 @@ def main() -> int:
         k["launches_trainer"] = through_trainer[k["name"]]
         k["launches_raw_data"] = through_raw[k["name"]]
         k["launches_approx_serving"] = through_approx.get(k["name"], 0)
+        # the mesh runs (gloo ranks sharing the card), summed over ranks
+        k["launches_mesh"] = sum(m[k["name"]] for m in through_mesh.values())
+        k["launches_mesh_per_rank"] = {
+            run: per.get(k["name"], []) for run, per in mesh_per_rank.items()}
         k["launches"] += (k["launches_trainer"] + k["launches_raw_data"]
-                          + k["launches_approx_serving"])
+                          + k["launches_approx_serving"]
+                          + k["launches_mesh"])
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)

@@ -1,7 +1,8 @@
-"""arec_torch stands alone: no module of it (nor chip_smoke.py) imports jax,
-jaxlib or arec; it serves a request in a process where those cannot be
-imported at all; and its entry point refuses to fall back to the CPU when
-no device was asked for and CUDA is absent."""
+"""arec_torch stands alone: no module of it (nor chip_smoke.py, nor the
+mesh tests' rank worker) imports jax, jaxlib or arec; it serves a request
+in a process where those cannot be imported at all, on one device and on
+a 2-rank gloo mesh; and its entry point refuses to fall back to the CPU
+when no device was asked for and CUDA is absent."""
 
 import ast
 import glob
@@ -17,7 +18,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(ROOT, "arec_torch", "**", "*.py"),
                            recursive=True)) + [
-    os.path.join(ROOT, "chip_smoke.py")]
+    os.path.join(ROOT, "chip_smoke.py"),
+    os.path.join(ROOT, "tests", "torch_mesh_worker.py")]
 FORBIDDEN = ("jax", "jaxlib", "arec")
 
 
@@ -279,3 +281,59 @@ def test_cli_preps_raw_ml1m_and_trains_with_jax_and_arec_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "trained"
     assert os.listdir(tmp_path / "d")[0].startswith("ml1m-")
+
+
+_CHILD_MESH = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from arec_torch import bridge
+    from arec_torch.config import (
+        Config, DataConfig, MeshConfig, ModelConfig, TrainConfig,
+    )
+    from arec_torch.data.io import load_or_prepare
+    from arec_torch.models.mf import MFSpec, init_mf
+    from torch_mesh_worker import run_ranks
+
+    torch.set_num_threads(1)
+    cfg = Config(
+        data=DataConfig(data_dir=sys.argv[1], syn_users=60, syn_items=50,
+                        syn_interactions=600),
+        model=ModelConfig(model="mf", dim=8, dense_vocab_threshold=12),
+        mesh=MeshConfig(data=1, model=2))
+    ds = load_or_prepare(cfg.data)
+    spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    params = bridge.to_numpy(init_mf(torch.Generator().manual_seed(0), spec))
+    res = run_ranks("recommend", 2, sys.argv[1], {"cases": [{
+        "config": cfg.to_json(), "params": params, "family": "mf",
+        "users": np.array([1, 2, 3, 4], np.int32), "seen": [[3], [], [], []],
+        "serve_batch": 4, "out_dir": sys.argv[1]}]})
+    ids = [r[0]["ids"] for r in res]
+    assert ids[0].shape == (4, 30) and 3 not in ids[0][0].tolist()
+    assert (ids[0] == ids[1]).all()
+    assert all(r[0]["clean"] for r in res)
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("served", ids[0][0][:3].tolist())
+""")
+
+
+def test_serves_on_a_gloo_mesh_with_jax_and_arec_blocked(tmp_path):
+    """syn MF on a 1 x 2 mesh: two spawned gloo ranks serve the same lists,
+    with jax and arec blocked in the parent, and neither imported by the
+    ranks."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_MESH, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("served")

@@ -168,21 +168,21 @@ def test_mesh_paths_raise():
 
 
 @pytest.mark.parametrize("config", ["syn_mf.json", "syn_sharded.json"])
-def test_spec_refuses_a_device_mesh(config):
-    """syn_sharded.json's 2 x 4 mesh raises in `MFSpec.from_config` until
-    the multi-GPU port (ROADMAP A7), rather than train or serve on one
-    device; syn_mf.json's 1 x 1 builds."""
+def test_spec_refuses_a_device_mesh(config, tmp_path):
+    """`MFSpec.from_config` builds on syn_sharded.json's 2 x 4 mesh, as on
+    syn_mf.json's 1 x 1 (the port serves and evaluates on a mesh); training
+    on the mesh still raises NotImplementedError naming ROADMAP A7.3."""
     cfg = load_config(parse_args(["--config", os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "configs", config)]))
+        "configs", config), "--set", f"data.data_dir={tmp_path}"]))
     tds_ = tgenerate(DATA)
-    if cfg.mesh.data * cfg.mesh.model == 1:
-        spec = tmf.MFSpec.from_config(cfg, tds_.user_schema,
-                                      tds_.item_schema)
-        assert spec.user.dim == cfg.model.dim
-    else:
-        with pytest.raises(NotImplementedError, match="A7"):
-            tmf.MFSpec.from_config(cfg, tds_.user_schema, tds_.item_schema)
+    spec = tmf.MFSpec.from_config(cfg, tds_.user_schema, tds_.item_schema)
+    assert spec.user.dim == cfg.model.dim
+    if cfg.mesh.data * cfg.mesh.model > 1:
+        from arec_torch.train.loop import Trainer
+        with pytest.raises(NotImplementedError, match="A7.3"):
+            Trainer(cfg, device="cpu").train()
+        assert not os.listdir(tmp_path)         # refused before any prep
 
 
 def test_latents_match_arec():

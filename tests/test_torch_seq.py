@@ -126,19 +126,21 @@ def test_segmented_state_equals_unsegmented():
 
 
 @pytest.mark.parametrize("mesh_data", [1, 2])
-def test_spec_refuses_a_device_mesh(mesh_data):
-    """A config whose mesh spans more than one device raises in
-    `SeqSpec.from_config` until the multi-GPU port (ROADMAP A7), rather
-    than train or serve on one device; the 1 x 1 config builds."""
+def test_spec_refuses_a_device_mesh(mesh_data, tmp_path):
+    """`SeqSpec.from_config` builds on a mesh that spans more than one
+    device (mesh.data = 2), as on the 1 x 1 config: the port serves and
+    evaluates on a mesh; training on it still raises NotImplementedError
+    naming ROADMAP A7.3."""
     cfg = load_config(parse_args([
         "--config", os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "configs", "syn_lstm.json"),
-        "--set", f"mesh.data={mesh_data}"]))
+        "--set", f"mesh.data={mesh_data}",
+        "--set", f"data.data_dir={tmp_path}"]))
     tds = tgenerate(DATA)
-    if mesh_data == 1:
-        spec = tseq.SeqSpec.from_config(cfg, tds.user_schema,
-                                        tds.item_schema)
-        assert spec.dim == 64
-    else:
-        with pytest.raises(NotImplementedError, match="A7"):
-            tseq.SeqSpec.from_config(cfg, tds.user_schema, tds.item_schema)
+    spec = tseq.SeqSpec.from_config(cfg, tds.user_schema, tds.item_schema)
+    assert spec.dim == 64
+    if mesh_data > 1:
+        from arec_torch.train.loop import Trainer
+        with pytest.raises(NotImplementedError, match="A7.3"):
+            Trainer(cfg, device="cpu").train()
+        assert not os.listdir(tmp_path)         # refused before any prep

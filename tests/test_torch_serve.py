@@ -273,26 +273,48 @@ def test_seq_family_refuses_users(served):
 @pytest.mark.parametrize("config,mesh_data", [
     ("syn_lstm.json", 1), ("syn_lstm.json", 2), ("syn_sharded.json", 2)])
 def test_recommender_refuses_a_device_mesh(tmp_path, config, mesh_data):
-    """A config whose mesh spans more than one device (syn_lstm.json with
-    mesh.data = 2; syn_sharded.json's MF on 2 x 4) raises in `Recommender`
-    until the multi-GPU port (ROADMAP A7), rather than serve on one device;
-    the 1 x 1 config serves."""
+    """`Recommender` serves on a mesh that spans more than one device
+    (syn_lstm.json with mesh.data = 2 on 2 gloo ranks; syn_sharded.json's
+    MF on 2 x 4, 8 ranks), each rank answering the whole request list, as
+    on the 1 x 1 config; training on the mesh still raises
+    NotImplementedError naming ROADMAP A7.3."""
+    from arec_torch import bridge
+    from arec_torch.models.mf import MFSpec, init_mf
+    from arec_torch.train.loop import Trainer
+    from torch_mesh_worker import run_ranks
+
     cfg = load_config(parse_args([
         "--config", os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "configs", config),
         "--set", f"mesh.data={mesh_data}", "--set", "model.dim=8",
         "--set", f"data.data_dir={tmp_path}", "--set", "data.syn_users=60",
         "--set", "data.syn_items=50", "--set", "data.syn_interactions=600"]))
-    if mesh_data > 1:
-        with pytest.raises(NotImplementedError, match="A7"):
-            tserve.Recommender(cfg, None, device="cpu")
-        return
     ds = load_or_prepare(cfg.data)
-    spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
-    rec = tserve.Recommender(cfg, init_seq(torch.Generator().manual_seed(0),
-                                           spec), serve_batch=4, device="cpu")
-    ids = rec.from_histories([[1, 2, 3], [4]])
-    assert ids.shape == (2, cfg.train.eval_topk)
+    gen = torch.Generator().manual_seed(0)
+    if cfg.model.model == "lstm":
+        spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+        params, req = init_seq(gen, spec), {"histories": [[1, 2, 3], [4]]}
+    else:
+        spec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+        params, req = init_mf(gen, spec), {"users": np.array([1, 2],
+                                                             np.int32)}
+    world = cfg.mesh.data * cfg.mesh.model
+    if world == 1:
+        rec = tserve.Recommender(cfg, params, serve_batch=4, device="cpu")
+        ids = [rec.from_histories(req["histories"])]
+    else:
+        with pytest.raises(NotImplementedError, match="A7.3"):
+            Trainer(cfg, device="cpu").train()
+        res = run_ranks("recommend", world, tmp_path, {"cases": [{
+            "config": cfg.to_json(), "params": bridge.to_numpy(params),
+            "serve_batch": 4, "family": cfg.model.model,
+            "out_dir": str(tmp_path), **req}]})
+        ids = [r[0]["ids"] for r in res]
+    for got in ids:
+        assert got.shape == (2, cfg.train.eval_topk)
+        np.testing.assert_array_equal(got, ids[0])
+    if "histories" in req:
+        assert not {1, 2, 3} & set(ids[0][0].tolist())
 
 
 # ---------------------------------------------------------------------------
