@@ -21,7 +21,11 @@ leaves whole.
 optimizer state, lr scale, step), so a run can continue mid-training on
 either side from the same state; `sparse_train_state_from_arec` does the
 same for the sparse touched-rows step's state (packed tables, the other
-parameters' optimizer state under "rest").
+parameters' optimizer state under "rest"). `shard_state` hands either
+to one rank of a mesh: arec's mesh train state in its natural layout
+(`Trainer._canonical_state`: tables and, dense, their Adagrad
+accumulators row-padded; `sparse_mesh_state_pspecs`' packed tables) cut
+to the rank's row blocks.
 """
 
 from __future__ import annotations
@@ -117,3 +121,21 @@ def sparse_train_state_from_arec(state, device="cpu"):
                           state.opt_state["rest"], device)},
                       lr_scale=to_torch(state.lr_scale, device),
                       step=to_torch(state.step, device))
+
+
+
+def shard_state(state, sh, sparse: bool, device="cpu"):
+    """A whole train state in the natural layout (a `TrainState` or its
+    dict, numpy or torch: e.g. `train_state_from_arec` of arec's mesh
+    state, whose tables are row-padded) → this rank's `TrainState` on
+    `device`: each row-sharded leaf (the tables; dense, their optimizer
+    state too) permuted into its stored order, padded and cut to the
+    rank's row block by `sh` (the Trainer's `_MeshServing`); the rest
+    whole."""
+    from arec_torch.dist.specs import tree_map_with_keys
+    from arec_torch.train.step import TrainState
+
+    tree = state if isinstance(state, dict) else state._asdict()
+    return TrainState(**tree_map_with_keys(
+        lambda keys, leaf: sh.shard(keys, to_torch(leaf, device), sparse),
+        tree))

@@ -11,9 +11,11 @@ Training prints the summary JSON; --recommend restores the latest
 checkpoint under train.train_dir and writes the top-K lists; the
 standing server is `python -m arec_torch.serve`. Both run on `cuda`;
 `main(argv, device="cpu")` runs them on the CPU from Python. A config
-with a mesh (mesh.data × mesh.model > 1) runs --recommend one rank per
-process (`torchrun --nproc-per-node N -m arec_torch.cli.main ...`); the
-primary rank writes the file. Training on a mesh raises (ROADMAP A7.3).
+with a mesh (mesh.data × mesh.model > 1) trains and runs --recommend one
+rank per process (`torchrun --nproc-per-node N -m arec_torch.cli.main
+...`, each rank on `cuda:{LOCAL_RANK}`; ranks that share a card are
+given `main(argv, device=...)`); every rank prints the summary, the
+primary writes the metrics, the checkpoints and the file.
 """
 
 from __future__ import annotations
@@ -105,8 +107,8 @@ def main(argv=None, device=None) -> int:
         return validate_prep(cfg, args.write_golden)
     from arec_torch.train.loop import Trainer
 
-    # on a mesh (one rank per process, `torchrun`) the port serves and
-    # evaluates, and --recommend restores into a serve-only Trainer
+    # on a mesh (one rank per process, `torchrun`) --recommend restores
+    # into a serve-only Trainer
     on_mesh = cfg.mesh.data * cfg.mesh.model > 1
     trainer = Trainer(cfg, serve_only=args.recommend and on_mesh,
                       device=device)

@@ -317,15 +317,3 @@ class Config:
             out = dataclasses.replace(out, **{sec: dataclasses.replace(cur, **coerced)})
         return out
 
-
-def refuse_mesh_training(cfg: Config) -> None:
-    """Raise for training on a config whose mesh spans more than one device
-    (data × model > 1, arec's own test for "uses a mesh"): the port serves
-    and evaluates on a mesh, and trains on one until the mesh training
-    slices (ROADMAP A7.3 dense, A7.4 sparse) land."""
-    if cfg.mesh.data * cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"training on a {cfg.mesh.data} x {cfg.mesh.model} device mesh "
-            f"waits for ROADMAP A7.3 (dense step) / A7.4 (sparse step); "
-            f"serving and evaluation run on it, training needs mesh.data = "
-            f"mesh.model = 1")

@@ -308,3 +308,43 @@ def fused_sampled_ce_sums(q, v_true, v_samp, c_samp, tl_base, true_ids,
     Differentiable in q, v_true, v_samp, c_samp, tl_base and weights."""
     return SampledCESums.apply(q, v_true, v_samp, c_samp, tl_base, true_ids,
                                sampled_ids, weights, dtype)
+
+
+def fused_sampled_ce_sums_sharded(mesh, q, v_true, v_samp, c_samp, tl_base,
+                                  true_ids, sampled_ids, weights=None,
+                                  dtype=torch.bfloat16):
+    """arec's `fused_sampled_ce_sums_sharded` on the port's mesh: GLOBAL
+    (Σ wᵢ·ceᵢ, Σ wᵢ) over every rank's rows, w ≡ 1 for weights=None.
+
+    A rank holds its "data" slab, the same on each "model" rank of its
+    data row, so the slab's N rows split T ways: model rank m runs the
+    kernels (`fused_sampled_ce_sums`, B5 forward, B6 in the backward) on
+    the m-th of T equal row blocks, N padded to a multiple of T with pad
+    rows of weight 0 and true id −1. One all_reduce sums (num, den) over
+    every rank. arec splits the global rows over ("data", "model"),
+    data-major, which is the same split. The sum's backward is the
+    identity (`dist.collectives.sum_partials`), so each rank's gradients
+    are the partials of its own rows: the gradient of q (zero outside
+    this rank's block) and of the replicated v_samp / c_samp each count
+    every row once when the train step sums them over the ranks."""
+    from arec_torch.dist.collectives import sum_partials
+    from arec_torch.dist.specs import mesh_coords
+
+    _, _, m, t = mesh_coords(mesh)
+    n = q.shape[0]
+    w = (torch.ones(n, dtype=torch.float32, device=q.device)
+         if weights is None else weights.to(torch.float32))
+    c = -(-n // t)
+    pad = c * t - n
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+        v_true = torch.nn.functional.pad(v_true, (0, 0, 0, pad))
+        tl_base = torch.nn.functional.pad(tl_base, (0, pad))
+        true_ids = torch.nn.functional.pad(true_ids, (0, pad), value=-1)
+        w = torch.nn.functional.pad(w, (0, pad))          # pad rows weigh 0
+    rows = slice(m * c, (m + 1) * c)
+    num, den = fused_sampled_ce_sums(
+        q[rows], v_true[rows], v_samp, c_samp, tl_base[rows],
+        true_ids[rows], sampled_ids, w[rows], dtype)
+    sums = sum_partials(torch.stack([num, den]))
+    return sums[0], sums[1]

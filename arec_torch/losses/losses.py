@@ -5,9 +5,16 @@ CE and its oracle, the full softmax CE; the MF pairwise-ranking losses
 optional Horvitz–Thompson correction (`_ht_weights`).
 
 Every sampled loss takes pre-drawn `sampled=(ids, p)`, so the sparse train
-step's touched rows and the loss's candidates are one draw. arec's
-`gather_cands` (the sparse-mesh step's all_gather of in-batch candidates)
-and the mesh path wait for mesh training (ROADMAP A7.3, A7.4) and raise.
+step's touched rows and the loss's candidates are one draw.
+
+On a mesh (the dense mesh step, `train.step.make_mesh_step_core`) a rank
+computes on its "data" slab and every loss returns the GLOBAL loss, each
+rank's backward giving its partial gradients (`dist.collectives`): the
+CE through the sharded fused CE (`mesh=`), a loss that is a mean over
+the slab through `mesh_mean`. `gather_cands` lifts the in-batch
+candidates of `mw` / `bbpr` to the global batch (`mesh_gather_cands`, an
+all_gather over "data"), as the dense step's global [B, B] score matrix
+and arec's sparse-mesh step have them.
 
 Candidate-side encoding is one `embed(ids) -> (v [n, D], bias [n])`
 callable, so the per-candidate bias arrives in the same row gather as the
@@ -20,6 +27,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from arec_torch.dist.collectives import (
+    all_gather_cat, all_sum, gather_cat, sum_partials,
+)
+from arec_torch.dist.specs import DATA_AXIS, mesh_coords
 from arec_torch.losses.sampling import draw, log_uniform_prob, pop_prob
 from arec_torch.tables.engine import mm_f32
 
@@ -34,6 +45,37 @@ def _mean(ce, weights):
     if weights is None:
         return ce.mean()
     return (ce * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def mesh_mean(loss, weight, mesh):
+    """The global loss Σ_d w_d·loss_d / Σ_d w_d from each "data" slab's
+    mean loss_d of weight w_d (its row count, or its mask's sum), which
+    the model ranks of the slab compute alike. Each rank adds the share
+    loss_d·w_d / (W·T) (T model ranks) into one all_reduce, so its
+    backward is that share's partial: summed over the ranks, the
+    gradients are the global loss's. (arec's sparse-mesh step scales by
+    w_d / W, `arec/train/sparse_mesh.py:306-318`: the shards of a
+    sequence batch carry different pad counts.)"""
+    _, _, _, t = mesh_coords(mesh)
+    weight = torch.as_tensor(weight, dtype=torch.float32,
+                             device=loss.device)
+    total = all_sum(weight, mesh.get_group(DATA_AXIS))
+    return sum_partials(loss * (weight / (total * t)))
+
+
+def mesh_gather_cands(mesh):
+    """gather_cands for mw / bbpr on a mesh: the slab's positive ids,
+    latents and biases all_gathered over "data" (the global in-batch
+    candidates, data-major), and the slab's row offset into them. The
+    gather's backward sums each slab's cross-batch cotangents back to
+    the slab that encoded them. Slabs are equal-sized."""
+    group = mesh.get_group(DATA_AXIS)
+    d = mesh_coords(mesh)[0]
+
+    def gather(ids, v, b):
+        return (gather_cat(ids, group), all_gather_cat(v, group),
+                all_gather_cat(b, group), d * ids.shape[0])
+    return gather
 
 
 def sampled_softmax_loss(query, true_ids, embed, gen, num_sampled: int,
@@ -51,11 +93,11 @@ def sampled_softmax_loss(query, true_ids, embed, gen, num_sampled: int,
     kernels for CUDA tensors, their plain versions for CPU tensors), False
     the pure path that materialises the [N, S] logits. None means True
     whenever remove_accidental_hits (the kernel has no unmasked mode); arec's
-    TPU row-count crossover is not inherited."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sampled_softmax_loss over a device mesh waits for mesh "
-            "training (ROADMAP A7.3)")
+    TPU row-count crossover is not inherited.
+
+    mesh: query is this rank's slab; the loss returned is the global one
+    (the fused CE through `fused_sampled_ce_sums_sharded`, the pure path
+    through `mesh_mean`)."""
     sampled_ids, p = sampled if sampled is not None else draw(
         gen, num_sampled, vocab, dist, pop)
     v_samp, b_samp = embed(sampled_ids)                    # [S, D], [S]
@@ -71,6 +113,14 @@ def sampled_softmax_loss(query, true_ids, embed, gen, num_sampled: int,
         else:
             v_true, b_true = embed(true_ids)               # [N, D], [N]
             tl_base = b_true - corr
+        if mesh is not None:
+            from arec_torch.kernels.sampled_softmax import (
+                fused_sampled_ce_sums_sharded,
+            )
+            num, den = fused_sampled_ce_sums_sharded(
+                mesh, query, v_true, v_samp.float(), c_samp, tl_base,
+                true_ids, sampled_ids, weights, compute_dtype)
+            return num / torch.clamp(den, min=1.0)
         num, den = fused_sampled_ce_sums(
             query, v_true, v_samp.float(), c_samp, tl_base, true_ids,
             sampled_ids, weights, compute_dtype)
@@ -88,6 +138,10 @@ def sampled_softmax_loss(query, true_ids, embed, gen, num_sampled: int,
         samp_logits = torch.where(hit, _NEG_INF, samp_logits)
     logits = torch.cat([true_logit[:, None], samp_logits], dim=1)
     ce = torch.logsumexp(logits, dim=1) - logits[:, 0]
+    if mesh is not None:
+        w = (query.shape[0] if weights is None
+             else torch.clamp(weights.float().sum(), min=1.0))
+        return mesh_mean(_mean(ce, weights), w, mesh)
     return _mean(ce, weights)
 
 
@@ -180,16 +234,19 @@ def _ht_weights(cand_ids, same, true_ids, pop_probs):
 
 def _batch_scores(query, true_ids, embed, compute_dtype, gather_cands):
     """(scores [b, B], own-positive scores [b], duplicate-positive mask
-    [b, B], candidate ids [B])."""
-    if gather_cands is not None:
-        raise NotImplementedError(
-            "gather_cands (in-batch candidates across a device mesh) waits "
-            "for mesh training (ROADMAP A7.4)")
+    [b, B], candidate ids [B]). gather_cands(ids, v, b) → (cand ids, v,
+    b, diag offset) lifts the b local positives to the B candidates
+    (`mesh_gather_cands`); row i's own positive is column offset + i."""
     v, b_bias = embed(true_ids)                                    # [b, D]
+    cand_ids, off = true_ids, 0
+    if gather_cands is not None:
+        cand_ids, v, b_bias, off = gather_cands(true_ids, v, b_bias)
     scores = mm_f32(query, v.T, compute_dtype) + b_bias[None, :]
-    pos = torch.diagonal(scores)
-    same = true_ids[None, :] == true_ids[:, None]                  # dup-pos
-    return scores, pos, same, true_ids
+    n = query.shape[0]
+    pos = scores[torch.arange(n, device=scores.device),
+                 off + torch.arange(n, device=scores.device)]
+    same = cand_ids[None, :] == true_ids[:, None]                  # dup-pos
+    return scores, pos, same, cand_ids
 
 
 def batch_mw_loss(query, true_ids, embed, vocab: int, margin: float = 1.0,

@@ -22,7 +22,8 @@ import torch
 from arec_torch.config import Config
 from arec_torch.data.schema import EntitySchema
 from arec_torch.losses.losses import (
-    batch_bpr_loss, batch_mw_loss, bpr_loss, sampled_softmax_loss, warp_loss,
+    batch_bpr_loss, batch_mw_loss, bpr_loss, mesh_gather_cands, mesh_mean,
+    sampled_softmax_loss, warp_loss,
 )
 from arec_torch.rng import split
 from arec_torch.tables.engine import (
@@ -91,12 +92,18 @@ def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,
     """One step's loss for a (user, positive item) batch. `gen` is the
     step's key (arec_torch.rng): it splits into the dropout and the
     negatives streams, as arec's rng does. use_kernel: the fused CE kernels
-    for `ce` (see `sampled_softmax_loss`). `mesh` and `gather_cands` serve
-    arec's mesh training paths and raise until ROADMAP A7.3."""
-    if mesh is not None or gather_cands is not None:
-        raise NotImplementedError(
-            "mf_loss over a device mesh (mesh, gather_cands) waits for "
-            "mesh training (ROADMAP A7.3)")
+    for `ce` (see `sampled_softmax_loss`).
+
+    mesh: the batch is this rank's "data" slab and the loss returned is
+    the global one, with partial gradients (the dense mesh step; see
+    `losses.mesh_mean`): `ce` through the sharded fused CE, the others as
+    slab means summed over "data", mw / bbpr scoring against the global
+    batch's positives. gather_cands: mw / bbpr's candidates lifted to the
+    global batch, without the global mean (arec's sparse-mesh step, which
+    scales the slab loss itself)."""
+    if mesh is not None and gather_cands is None and spec.loss in (
+            "mw", "bbpr"):
+        gather_cands = mesh_gather_cands(mesh)
     lk = lookup_fns or {}
     g_drop, g_neg = split(gen, batch["user"].device)
     u = encode(params["user"], spec.user, user_dev, batch["user"],
@@ -114,7 +121,18 @@ def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,
         return sampled_softmax_loss(
             u, pos, embed, g_neg, spec.num_sampled, vocab,
             dist=spec.sampler, compute_dtype=spec.dtype, sampled=sampled,
-            use_kernel=use_kernel, pop=pop)
+            use_kernel=use_kernel, mesh=mesh, pop=pop)
+    loss = _mf_ranking_loss(spec, u, pos, embed, g_neg, vocab, sampled, pop,
+                            gather_cands)
+    if mesh is not None:
+        return mesh_mean(loss, pos.shape[0], mesh)
+    return loss
+
+
+def _mf_ranking_loss(spec, u, pos, embed, g_neg, vocab, sampled, pop,
+                     gather_cands):
+    """warp / bpr over the sampled negatives, mw / bbpr over the in-batch
+    positives: the mean over this batch's rows."""
     # warp/bpr draw from the same spec.sampler proposal as ce and take the
     # pre-drawn `sampled`, so the sparse step's touched rows and the loss's
     # candidates are one draw
@@ -136,10 +154,10 @@ def mf_loss(params: dict, spec: MFSpec, user_dev: dict, item_dev: dict,
         pp = pop[1]
     if spec.loss == "mw":
         return batch_mw_loss(u, pos, embed, vocab, compute_dtype=spec.dtype,
-                             pop_probs=pp)
+                             gather_cands=gather_cands, pop_probs=pp)
     if spec.loss == "bbpr":
         return batch_bpr_loss(u, pos, embed, compute_dtype=spec.dtype,
-                              pop_probs=pp)
+                              gather_cands=gather_cands, pop_probs=pp)
     raise ValueError(f"unknown mf loss {spec.loss!r}")
 
 

@@ -322,7 +322,9 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     as arec's rng does; `sampled=(ids, p)` hands pre-drawn negatives in.
     With `states`/`return_states` the loss runs one TBPTT segment.
     lookup_fn / lookup_fns: the row gather, per role ("item", "user",
-    "out" for the untied output table) in lookup_fns.
+    "out" for the untied output table) in lookup_fns. mesh: the batch is
+    this rank's "data" slab and the loss is the global one, through the
+    sharded fused CE (the dense mesh step, batch-major as arec's).
 
     A packed history of train_segments·L steps is scanned in segments of L
     with (h, c) carried and gradients flowing through the carries; each

@@ -26,9 +26,15 @@ model runs unchanged on a mesh:
     only capacity_factor = 0 (C = n, the default) is overflow-proof.
     Every overflowed request is counted into `EXCHANGE_DROPS` (a device
     tensor; read, with one host sync, only when capacity_factor > 0).
-    The exchange's autograd (the reverse all-to-all) is not ported yet:
-    the port serves through it under `inference_mode`, and training on a
-    mesh is ROADMAP A7.3.
+    The lookup is differentiable in the table shard, as `jax.grad` makes
+    arec's: the rows' all-to-all runs in reverse (`dist.collectives`),
+    the row gather's backward adds each slot's cotangent into its table
+    row, the dedup's inverse gather sums duplicate ids' cotangents BEFORE
+    the reverse exchange, and the closing all_gather's backward sums the
+    cotangents over "model" and keeps this rank's slice. The shard's
+    gradient is this rank's partial: the train step sums it over "data"
+    (arec's shard_map does that psum because the shard enters it
+    replicated over "data").
   * `make_masked_lookup`: the serving-side lookup, the counterpart of
     arec's `make_perm_dense_lookup` and `make_gspmd_lookup` (a plain gather
     on row-sharded operands, whose collectives XLA chooses). Each rank
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from arec_torch.dist.collectives import all_gather_cat, all_to_all, gather_cat
 from arec_torch.dist.specs import TABLE_AXIS
 from arec_torch.tables.engine import dense_lookup
 from arec_torch.tables.layout import RowPerm
@@ -168,13 +175,6 @@ def _dedup_ids(ids: torch.Tensor):
     return uniq, valid, inv
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Equal-split all_to_all_single on the leading axis."""
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
-
-
 def _exchange_lookup(table_shard: torch.Tensor, ids: torch.Tensor,
                      capacity_factor: float, dedup: bool, group,
                      num_shards: int) -> torch.Tensor:
@@ -193,18 +193,25 @@ def _exchange_lookup(table_shard: torch.Tensor, ids: torch.Tensor,
     if capacity_factor > 0:
         # in REQUEST units: a dropped unique id drops every duplicate
         EXCHANGE_DROPS.add(dropped[inv].sum() if dedup else dropped.sum())
-    recv_local = _all_to_all(send_local.reshape(-1), group)
-    # recv_local is a local row or 0 for pad slots: always in range
-    rows = table_shard[recv_local.long()]                 # [T·C, D]
-    back = _all_to_all(rows, group)
+    recv_local = all_to_all(send_local.reshape(-1), group)
+    # recv_local is a local row or 0 for pad slots: always in range. Both
+    # row gathers here are `embedding`, whose backward sums a row's
+    # repeats by a sort and segments: the pad slots all read row 0 and a
+    # hot id repeats thousands of times, and an indexing backward over
+    # them took 180 ms and 36 ms of a dense step at syn_xing_full's width
+    # (one H100, a one-rank NCCL group) against 25 ms for the whole step on
+    # one card
+    rows = torch.nn.functional.embedding(recv_local.long(), table_shard)
+    back = all_to_all(rows, group)
     flat_rows = back * send_valid.reshape(-1, 1)
-    out = torch.zeros((n, table_shard.shape[1]), dtype=flat_rows.dtype,
-                      device=flat_rows.device)
     # send_pos is a permutation of request slots; invalid slots carry
     # zero rows and add them to position 0
-    out.index_add_(0, send_pos.reshape(-1).long(), flat_rows)
+    out = flat_rows.new_zeros((n, table_shard.shape[1])).index_add(
+        0, send_pos.reshape(-1).long(), flat_rows)
     if dedup:
-        out = out[inv.long()]
+        # back to request order; the backward of this gather sums the
+        # duplicate ids' cotangents before the reverse exchange
+        out = torch.nn.functional.embedding(inv.long(), out)
     return out
 
 
@@ -230,10 +237,16 @@ def make_sharded_lookup(mesh, capacity_factor: float = 0.0,
     and splits it over both axes; here each rank pads its data slab's list
     to a multiple of model. The rows are the same; the per-rank slices,
     and so the dedup and the capacity buckets, are arec's exactly when
-    the batch's id count divides by data·model."""
+    the batch's id count divides by data·model. A list every data rank
+    holds whole (the sampled negatives) arec splits over data·model and
+    the port over model, so at capacity_factor > 0 its drops differ.
+
+    `.head(table, n)` (the engine's dense prefix, which arec reads as a
+    plain slice of the sharded table) runs the exchange at capacity 0,
+    so no prefix row is ever dropped."""
     group, t, me = _model_group(mesh)
 
-    def lookup(table_shard, ids):
+    def run(table_shard, ids, cf):
         flat = ids.reshape(-1)
         if perm is not None:
             flat = perm.apply_ids(flat)
@@ -241,12 +254,16 @@ def make_sharded_lookup(mesh, capacity_factor: float = 0.0,
         chunk = -(-n // t)
         flat = torch.nn.functional.pad(flat, (0, chunk * t - n))
         mine = _exchange_lookup(table_shard, flat[me * chunk:(me + 1) * chunk],
-                                capacity_factor, dedup, group, t)
-        parts = [torch.empty_like(mine) for _ in range(t)]
-        dist.all_gather(parts, mine, group=group)
-        return torch.cat(parts)[:n].reshape(*ids.shape, table_shard.shape[1])
+                                cf, dedup, group, t)
+        return all_gather_cat(mine, group)[:n].reshape(
+            *ids.shape, table_shard.shape[1])
 
-    return _with_head(lookup)
+    def lookup(table_shard, ids):
+        return run(table_shard, ids, capacity_factor)
+
+    lookup.head = lambda table, n: run(
+        table, torch.arange(n, dtype=torch.int32, device=table.device), 0.0)
+    return lookup
 
 
 def make_perm_dense_lookup(perm: RowPerm):
@@ -265,10 +282,7 @@ def gather_rows(table_shard: torch.Tensor, mesh) -> torch.Tensor:
     row of the item table (each item's id row and its attribute rows), so
     one gather of the table moves the least: each rank receives (T-1)/T of
     it, where the exchange would move T slots per requested row."""
-    group, t, _ = _model_group(mesh)
-    parts = [torch.empty_like(table_shard) for _ in range(t)]
-    dist.all_gather(parts, table_shard.contiguous(), group=group)
-    return torch.cat(parts)
+    return gather_cat(table_shard, _model_group(mesh)[0])
 
 
 def make_masked_lookup(mesh, perm: RowPerm | None = None):

@@ -1,12 +1,13 @@
-"""Trainer (port of `arec/train/loop.py`): training on one device;
-evaluation, recommend mode and serving on one device or on a mesh.
+"""Trainer (port of `arec/train/loop.py`): training, evaluation, recommend
+mode and serving, on one device or on a ("data", "model") mesh.
 
 dataset load → model build → epoch loop with periodic eval (valid
 Recall@K), plateau LR decay and checkpoint → recommend mode emitting top-K
 lists. The steps are the port's (`train/step.py` dense, `train/sparse.py`
-touched rows), so every kernel of the path runs through them: the LSTM or
-GRU scan and the fused sampled-softmax CE in the loss, the row scatter in
-the sparse step's write-back.
+touched rows, and their mesh forms `make_mesh_step_core` and
+`train/sparse_mesh.py`), so every kernel of the path runs through them:
+the LSTM or GRU scan and the fused sampled-softmax CE in the loss, the
+row scatter in the sparse steps' write-back.
 
 Resume is exact, as in arec: each step's key is `step_generator(seed,
 step)`, a pure function of the global step; the batch order is a pure
@@ -30,21 +31,31 @@ Config knobs arec's Trainer reads, each honoured or refused:
   eval_recall_target < 1  periodic eval through the approximate top-k
                           (`retrieval.mips.approx_max_k`), as arec's;
                           serve_recall_target < 1 serves through it.
-  a mesh (data·model > 1)   serves and evaluates (`Trainer(serve_only=
-                          True)`, `evaluate()`, `recommend()`), one rank
-                          per process; training on it raises
-                          NotImplementedError (ROADMAP A7.3, A7.4).
+  a mesh (data·model > 1)   trains, serves and evaluates, one rank per
+                          process (`torchrun`, or a caller that set the
+                          process group up); mesh.lookup = "gspmd" trains
+                          through the exchange too, on natural-order
+                          tables (the port has no GSPMD).
 
 On a mesh (`_MeshServing`) each rank holds its "model" row block of every
 table (padded to a model-axis multiple, in RowPerm order under row_shard
-= "shuffle"; checkpoints stay natural, so a single-device checkpoint
-serves on any mesh), the replicated dense weights, and its "data" slab of
-each eval or serving batch. Queries read their rows through the masked
-lookup (`tables.sharded.make_masked_lookup`: the same ids on every model
-rank); each rank encodes its own contiguous item range, from the item
-table gathered whole for the encode (`gather_rows`), so the item matrix
-is born row-sharded; the top-k is `retrieval.mips.make_sharded_topk`,
-and hit counts are summed over "data".
+= "shuffle") and of its optimizer state, the replicated dense weights,
+and its "data" slab of each batch. Training steps through the sparse mesh
+step (`train/sparse_mesh.py`) or the dense one
+(`train.step.make_mesh_step_core`, its loss through the exchange lookups
+and the sharded CE); train.batch_size is the GLOBAL batch, and data rank
+d reads the d::data strided part of each epoch's order (arec's per-host
+split), so the global batch is, as a set, the single-device one.
+Checkpoints stay in the natural layout: the primary gathers the row
+blocks of its data row, un-permutes and writes them, so a checkpoint
+moves between one device and any mesh. Queries read their rows through
+the masked lookup (`tables.sharded.make_masked_lookup`: the same ids on
+every model rank); each rank encodes its own contiguous item range, from
+the item table gathered whole for the encode (`gather_rows`), so the
+item matrix is born row-sharded; the top-k is
+`retrieval.mips.make_sharded_topk`, and hit counts are summed over
+"data". Every rank reaches the same evaluations, saves and drains in the
+same order; side effects (metrics, files) are the primary's.
 """
 
 from __future__ import annotations
@@ -58,15 +69,16 @@ import torch
 import torch.distributed as dist
 
 from arec_torch import resolve_device
-from arec_torch.config import Config, refuse_mesh_training
+from arec_torch.config import Config
 from arec_torch.data.dataset import eval_batches, mf_batches, seq_batches
 from arec_torch.data.io import load_or_prepare
 from arec_torch.data.prefetch import prefetch, to_device
+from arec_torch.dist.collectives import all_sum
 from arec_torch.dist.global_io import all_hosts_concat, shard_from_hosts
 from arec_torch.dist.mesh import is_primary, make_mesh, multihost_init
 from arec_torch.dist.specs import (
-    DATA_AXIS, mesh_coords, table_role, tree_leaves_with_keys,
-    tree_map_with_keys,
+    DATA_AXIS, TABLE_AXIS, mesh_coords, shard_rows, table_role,
+    tree_leaves_with_keys, tree_map_with_keys,
 )
 from arec_torch.losses.sampling import make_pop
 from arec_torch.models import mf as mf_mod
@@ -77,8 +89,8 @@ from arec_torch.tables.engine import (
 )
 from arec_torch.tables.layout import RowPerm
 from arec_torch.tables.sharded import (
-    gather_rows, make_masked_lookup, make_perm_dense_lookup, round_up_rows,
-    shard_row_index,
+    EXCHANGE_DROPS, gather_rows, make_masked_lookup, make_perm_dense_lookup,
+    make_sharded_lookup, round_up_rows, shard_row_index,
 )
 from arec_torch.train import sparse as sparse_mod
 from arec_torch.train.checkpoint import Checkpointer, abstract_like
@@ -86,7 +98,8 @@ from arec_torch.train.evalu import recall_hits, topk_with_mask
 from arec_torch.train.metrics import MetricLogger
 from arec_torch.train.profile import StepProfiler
 from arec_torch.train.step import (
-    decay_lr, init_state, make_optimizer, make_train_step, step_generator,
+    TrainState, decay_lr, init_state, make_mesh_step_core, make_optimizer,
+    make_train_step, step_generator,
 )
 
 
@@ -127,19 +140,26 @@ def _table_roles(is_seq: bool, spec) -> dict[str, tuple[int, int]]:
 
 
 class _MeshServing:
-    """A rank's view of the ("data", "model") mesh for evaluation and
-    serving: the process group and mesh, the tables' RowPerms (row_shard
-    = "shuffle" with lookup = "alltoall", as arec builds them; arec's
-    "gspmd" lookup keeps tables natural), and the queries' per-role
-    lookups (`lookups`: the masked gather, the same ids on every model
-    rank)."""
+    """A rank's view of the ("data", "model") mesh: the process group and
+    mesh, the tables' RowPerms (row_shard = "shuffle" with lookup =
+    "alltoall", as arec builds them; arec's "gspmd" lookup keeps tables
+    natural), the queries' per-role lookups (`lookups`: the masked
+    gather, the same ids on every model rank), and the moves between a
+    whole natural state and this rank's shard of it."""
 
     def __init__(self, cfg: Config, spec, is_seq: bool, device):
         mc = cfg.mesh
         multihost_init(device)
         self.mesh = make_mesh(mc.data, mc.model, device)
-        _, self.n_data, self.m, self.t = mesh_coords(self.mesh)
+        self.d, self.n_data, self.m, self.t = mesh_coords(self.mesh)
         self.data_group = self.mesh.get_group(DATA_AXIS)
+        # the checkpoint's gather of data row 0's row blocks runs on the
+        # host: over the model group where it is gloo's, else over a gloo
+        # group of those ranks (made by every rank, in the same order)
+        self.host_group = self.mesh.get_group(TABLE_AXIS)
+        if dist.get_backend(self.host_group) != "gloo":
+            self.host_group = dist.new_group(list(range(self.t)),
+                                             backend="gloo")
         self.is_seq, self.spec = is_seq, spec
         roles = _table_roles(is_seq, spec)
         self.perms: dict[str, RowPerm] = {}
@@ -170,6 +190,44 @@ class _MeshServing:
             return torch.empty((rows,) + tuple(leaf.shape[1:]),
                                dtype=leaf.dtype, device="meta")
         return type(state)(**tree_map_with_keys(cut, state._asdict()))
+
+    def shard(self, keys, leaf, sparse: bool):
+        """This rank's part of a whole natural leaf: a row-sharded leaf
+        permuted into its stored order, padded and cut to this rank's row
+        block (a copy, so the whole table can be freed); any other leaf
+        as it is."""
+        role = self.sharded(keys, sparse)
+        if role is None:
+            return leaf
+        if role in self.perms:
+            leaf = self.perms[role].permute_table(leaf)
+        return shard_rows(leaf, self.mesh).clone()
+
+    def canonical(self, state, sparse: bool, natural_rows: dict):
+        """The whole state in the natural layout on the primary rank (row
+        blocks on the host, gathered from data row 0's model ranks,
+        un-permuted and cut to the natural rows), None on every other
+        rank. Ranks of other data rows hold replicas and take no part."""
+        if self.d != 0:
+            return None
+        primary = dist.get_rank() == 0
+
+        def whole(keys, leaf):
+            role = self.sharded(keys, sparse)
+            if role is None:
+                return leaf
+            host = leaf.detach().cpu().contiguous()
+            parts = ([torch.empty_like(host) for _ in range(self.t)]
+                     if primary else None)
+            dist.gather(host, parts, dst=0, group=self.host_group)
+            if not primary:
+                return None
+            full = torch.cat(parts)[:natural_rows[keys]]
+            if role in self.perms:
+                full = self.perms[role].permute_table(full, inverse=True)
+            return full
+        tree = tree_map_with_keys(whole, state._asdict())
+        return TrainState(**tree) if primary else None
 
     def row_index(self, natural_rows: dict, sparse: bool):
         """For the checkpoint restore: keys → the natural row behind each
@@ -289,11 +347,10 @@ class Trainer:
         device: where to run; None = `cuda`, or under a launcher the rank's
         `cuda:{LOCAL_RANK}` (raises if there is none).
 
-        On a mesh (cfg.mesh data × model > 1) only serve_only=True builds:
-        this process is one rank of the process group (`torchrun`, or one
-        its caller initialised), and holds its shard of the state."""
-        if not serve_only:
-            refuse_mesh_training(cfg)
+        On a mesh (cfg.mesh data × model > 1) this process is one rank of
+        the process group (`torchrun`, or one its caller initialised) and
+        holds its shard of the state: the tables are initialised whole
+        from the seed, as on one device, then cut to its row block."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serve_only = serve_only
@@ -304,6 +361,10 @@ class Trainer:
         self.lookup = dense_lookup   # also for compact_table_grads
         self.sh = (_MeshServing(cfg, self.spec, self.is_seq, self.device)
                    if cfg.mesh.data * cfg.mesh.model > 1 else None)
+        if self.sh is not None and t.batch_size % self.sh.n_data:
+            raise ValueError(
+                f"train.batch_size ({t.batch_size}) is the GLOBAL batch and "
+                f"must divide by mesh.data ({self.sh.n_data})")
 
         # sampler proposal, as arec's (`arec/train/loop.py:204-225`)
         if t.batch_ht and t.loss not in ("mw", "bbpr"):
@@ -321,32 +382,31 @@ class Trainer:
 
         self.opt = make_optimizer(t.optimizer, t.learning_rate)
         self.sparse = t.sparse_update
+        self._paths = sparse_mod.table_paths(self.is_seq, self.spec)
         init = seq_mod.init_seq if self.is_seq else mf_mod.init_mf
+        # the whole state's shapes: the natural rows of every leaf, and
+        # the serve-only state
+        shapes = self._init_state(init(torch.Generator().manual_seed(
+            t.seed), self.spec, device="meta"))
+        self._natural_rows = {keys: leaf.shape[0] for keys, leaf in
+                              tree_leaves_with_keys(shapes._asdict())
+                              if leaf.dim()}
         if serve_only:
-            params = init(torch.Generator().manual_seed(t.seed), self.spec,
-                          device="meta")
+            self.state = shapes
+            if self.sh is not None:
+                self.state = self.sh.abstract(self.state, self.sparse)
         else:
             params = init(torch.Generator(device=self.device).manual_seed(
                 t.seed), self.spec)
-        self._paths = sparse_mod.table_paths(self.is_seq, self.spec)
-        if self.sparse:
-            self.state = sparse_mod.init_sparse_state(
-                params, self._paths, self.opt, t.optimizer)
-        else:
-            self.state = init_state(params, self.opt)
-        del params
-        self._natural_rows = {keys: leaf.shape[0] for keys, leaf in
-                              tree_leaves_with_keys(self.state._asdict()) if leaf.dim()}
-        if self.sh is not None:
-            self.state = self.sh.abstract(self.state, self.sparse)
-        if not serve_only:
-            if self.sparse:
-                self.step_fn = sparse_mod.make_sparse_train_step(
-                    self.is_seq, self.spec, self.user_dev, self.item_dev,
-                    self.opt, t.learning_rate, t.optimizer, pop=self.pop)
-            else:
-                self.step_fn = make_train_step(self._loss_fn(), self.opt,
-                                               t.learning_rate)
+            if self.sh is not None:
+                params = tree_map_with_keys(
+                    lambda keys, leaf: self.sh.shard(("params",) + keys,
+                                                     leaf, self.sparse),
+                    params)
+            self.state = self._init_state(params)
+            del params
+            self.step_fn = self._make_step()
+        del shapes
 
         self.dispatch_k = t.steps_per_dispatch
         if self.dispatch_k > 1 and not serve_only and (
@@ -358,33 +418,90 @@ class Trainer:
 
         self.ckpt = Checkpointer(t.train_dir, async_save=t.async_ckpt)
         self.metrics = MetricLogger(t.train_dir, tensorboard=t.tensorboard,
-                                    enabled=not serve_only)
+                                    enabled=not serve_only and is_primary())
         self.start_epoch = 0
         self.start_step_in_epoch = 0
         self._resume = {"prev_loss": None, "window": [], "best_recall": 0.0}
         self._maybe_restore()
 
     # ------------------------------------------------------------------
+    def _init_state(self, params):
+        if self.sparse:
+            return sparse_mod.init_sparse_state(
+                params, self._paths, self.opt, self.cfg.train.optimizer)
+        return init_state(params, self.opt)
+
+    def _make_step(self):
+        """The step of this run: sparse or dense, on one device or on the
+        mesh (arec's `loop.py:255-296`)."""
+        t = self.cfg.train
+        if self.sh is not None and self.sparse:
+            from arec_torch.train.sparse_mesh import (
+                make_sparse_mesh_step_core,
+            )
+            return make_sparse_mesh_step_core(
+                self.sh.mesh, self.is_seq, self.spec, self.user_dev,
+                self.item_dev, self.opt, t.learning_rate, t.optimizer,
+                pop=self.pop, perms=self.sh.perms)
+        if self.sparse:
+            return sparse_mod.make_sparse_train_step(
+                self.is_seq, self.spec, self.user_dev, self.item_dev,
+                self.opt, t.learning_rate, t.optimizer, pop=self.pop)
+        if self.sh is not None:
+            return make_mesh_step_core(
+                self._loss_fn(), self.opt, t.learning_rate, self.sh.mesh)
+        return make_train_step(self._loss_fn(), self.opt, t.learning_rate)
+
     def _loss_fn(self):
+        """The dense step's loss: on one device through `dense_lookup`,
+        time-major for the sequence family; on the mesh through the
+        per-role exchange lookups (arec's `loop.py:126-158`), batch-major,
+        with the global loss of `mesh=`."""
         spec, lookup, pop = self.spec, self.lookup, self.pop
         item_dev, user_dev = self.item_dev, self.user_dev
+        mesh, lookup_fns = None, None
+        if self.sh is not None:
+            mc = self.cfg.mesh
+            mesh = self.sh.mesh
+            lookup = make_sharded_lookup(mesh, mc.capacity_factor,
+                                         dedup=mc.dedup)
+            lookup_fns = {role: make_sharded_lookup(
+                mesh, mc.capacity_factor, dedup=mc.dedup,
+                perm=self.sh.perms.get(role))
+                for role in _table_roles(self.is_seq, spec)}
         if self.is_seq:
             def loss_fn(p, batch, gen):
                 return seq_mod.seq_loss(p, spec, item_dev, user_dev, batch,
                                         gen, lookup_fn=lookup,
-                                        time_major=True, pop=pop)
+                                        lookup_fns=lookup_fns,
+                                        time_major=mesh is None, mesh=mesh,
+                                        pop=pop)
         else:
             def loss_fn(p, batch, gen):
                 return mf_mod.mf_loss(p, spec, user_dev, item_dev, batch,
-                                      gen, lookup_fn=lookup, pop=pop)
+                                      gen, lookup_fn=lookup,
+                                      lookup_fns=lookup_fns, mesh=mesh,
+                                      pop=pop)
         return loss_fn
 
     def _batches(self, epoch: int):
+        """This rank's batches of `epoch`: on one device the whole batch;
+        on a mesh data rank d's batch_size/data rows of each global batch,
+        from the d::data part of the epoch's order (arec's per-host
+        iterators), cut to the global batch count so that every data rank
+        takes the same number of steps."""
         t = self.cfg.train
+        d, nd = (0, 1) if self.sh is None else (self.sh.d, self.sh.n_data)
+        b = t.batch_size // nd
         if self.is_seq:
-            return seq_batches(self.ds, t.batch_size, self.spec.pack_len,
-                               t.seed, epoch)
-        return mf_batches(self.ds, t.batch_size, t.seed, epoch)
+            it = seq_batches(self.ds, b, self.spec.pack_len, t.seed, epoch,
+                             d, nd)
+            n = int((self.ds.hist_lengths >= 2).sum())
+            count = max(n // t.batch_size, 1 if n else 0)
+        else:
+            it = mf_batches(self.ds, b, t.seed, epoch, d, nd)
+            count = len(self.ds.train_users) // t.batch_size
+        return it if nd == 1 else itertools.islice(it, count)
 
     def _eval_params(self):
         """Plain param tree for eval paths (sparse Adagrad stores tables
@@ -536,6 +653,21 @@ class Trainer:
             step = box[0]
         return step
 
+    def save(self, step: int, data_pos: dict) -> None:
+        """Checkpoint the state at `step` in the natural layout (arec's
+        `_canonical_state`): on a mesh the primary gathers the row blocks
+        and writes; every rank calls this at the same points."""
+        state = self.state
+        if self.sh is not None:
+            state = self.sh.canonical(state, self.sparse, self._natural_rows)
+            if state is None:
+                return
+        self.ckpt.save(step, state, data_pos, self.cfg.to_json())
+
+    @property
+    def _chips(self) -> int:
+        return 1 if self.sh is None else dist.get_world_size()
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -574,10 +706,18 @@ class Trainer:
                 mean_loss = float(torch.stack(window).mean())
                 recall = self.evaluate()
                 best_recall = max(best_recall, recall)
+                extra = {}
+                if self.sh is not None and self.cfg.mesh.capacity_factor > 0:
+                    # overflowed exchange requests since the last eval,
+                    # over every rank (capacity_factor 0 cannot overflow)
+                    extra["exchange_dropped"] = int(all_sum(torch.tensor(
+                        EXCHANGE_DROPS.read_and_reset(),
+                        device=self.device)))
                 self.metrics.log(
                     steps_done, loss=mean_loss, recall_at_k=recall,
                     lr=float(lr), examples_per_s=ex_since / dt,
-                    examples_per_s_per_chip=ex_since / dt)
+                    examples_per_s_per_chip=ex_since / dt / self._chips,
+                    **extra)
                 if mean_loss > prev_loss:        # plateau decay
                     self.state = decay_lr(self.state, t.lr_decay)
                 prev_loss = mean_loss
@@ -587,10 +727,8 @@ class Trainer:
                 # steps_per_checkpoint is the EVAL cadence; saves ride
                 # every Nth eval (the final checkpoint is always written)
                 if eval_events % max(t.save_every_evals, 1) == 0:
-                    self.ckpt.save(steps_done, self.state,
-                                   self._data_pos(pos, prev_loss, window,
-                                                  best_recall),
-                                   self.cfg.to_json())
+                    self.save(steps_done, self._data_pos(
+                        pos, prev_loss, window, best_recall))
             return bool(t.max_steps and steps_done >= t.max_steps)
 
         # unlike arec, a run restored at max_steps takes no further step
@@ -617,17 +755,15 @@ class Trainer:
                         break
         profiler.close()
         self.ckpt.drain()   # async saves: publish before the step check
-        if steps_done and self.ckpt.latest_step() != steps_done:
+        if steps_done and self.latest_step() != steps_done:
             # the final checkpoint: a tail shorter than steps_per_checkpoint
             # must not be lost (serving restores the latest step)
-            self.ckpt.save(steps_done, self.state,
-                           self._data_pos(pos, prev_loss, window,
-                                          best_recall),
-                           self.cfg.to_json())
+            self.save(steps_done, self._data_pos(pos, prev_loss, window,
+                                                 best_recall))
             self.ckpt.drain()
         approx = bool(t.eval_max_batches) or t.eval_recall_target < 1.0
         final_recall = self.evaluate()
-        if approx:
+        if approx and is_primary():
             print("[eval] WARNING: final recall_at_k is APPROXIMATE "
                   f"(eval_max_batches={t.eval_max_batches}, "
                   f"eval_recall_target={t.eval_recall_target}); call "

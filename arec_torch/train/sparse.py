@@ -31,7 +31,7 @@ As in the dense port, the tables and the other parameters are updated in
 place: the state passed to a step is consumed by it. arec's
 `make_sparse_multi_step` (K steps in one `lax.scan`) is not ported: the
 port's Trainer runs `steps_per_dispatch` as K single steps. The mesh
-variant (`sparse_mesh.py`) waits for the multi-GPU port (ROADMAP A7).
+variant is `train/sparse_mesh.py`.
 """
 
 from __future__ import annotations
@@ -50,7 +50,9 @@ from arec_torch.tables.engine import (
     FUSED, build_subset, gather_row_ids, gather_unique_bound,
     make_subset_lookup, subset_pos_map, unique_rows,
 )
-from arec_torch.train.step import Optimizer, TrainState, _leaves, _rebuild
+from arec_torch.train.step import (
+    Optimizer, TrainState, _leaves, _rebuild, check_tf32,
+)
 
 ADAGRAD_INIT_ACCUM = 0.1   # optax.adagrad defaults, as the dense path
 ADAGRAD_EPS = 1e-7
@@ -260,6 +262,72 @@ def check_sparse_loss(is_seq: bool, spec) -> bool:
         f"{MF_SAMPLED_LOSSES + MF_BATCH_LOSSES}, not {spec.loss!r}")
 
 
+def touched_rows(is_seq: bool, spec, user_dev, item_dev, batch,
+                 gen: torch.Generator, pop=None):
+    """Steps 1–2 of a sparse step: (sampled, specs, uids). The negatives
+    are pre-drawn from the loss's own stream (the loss splits gen into
+    (dropout, negatives) itself, and with `sampled` handed in its own
+    draw is not made, so the negatives are the dense step's; mw / bbpr
+    draw nothing); then each table's touched rows, sorted and unique at
+    a static bound (sentinel-padded)."""
+    dev = batch["user"].device
+    if check_sparse_loss(is_seq, spec):
+        vocab = spec.vocab if is_seq else spec.item.schema.num_entities
+        _, g_neg = split(gen, dev)
+        sampled = draw(g_neg, spec.num_sampled, vocab, spec.sampler, pop)
+        neg_ids = sampled[0]
+    else:
+        sampled = None
+        neg_ids = torch.zeros(0, dtype=torch.int32, device=dev)
+    specs = (_seq_tables if is_seq else _mf_tables)(
+        spec, user_dev, item_dev, batch, neg_ids)
+    uids = {s.role: unique_rows(ids, total, cap=bound)
+            for s, ids, total, bound in specs}
+    return sampled, specs, uids
+
+
+def subset_loss_and_grads(is_seq: bool, spec, params, specs, uids,
+                          sub_full: dict, packed: bool, user_dev, item_dev,
+                          batch, gen: torch.Generator, sampled, pop=None,
+                          gather_cands=None):
+    """Steps 3–4 of a sparse step: the loss over the subset tables
+    `sub_full` (per role, [prefix ++ touched] rows; with packed Adagrad
+    the loss sees their param half) and every other parameter, and its
+    gradients. Returns (loss, {role: subset gradient}, the other
+    parameters' gradients, that tree with (1, 1) table placeholders, its
+    leaves)."""
+    subs = {role: (f[:, : f.shape[1] // 2] if packed else f)
+            .detach().clone().requires_grad_()
+            for role, f in sub_full.items()}
+    lookup_fns = {
+        s.role: make_subset_lookup(
+            subset_pos_map(uids[s.role], total, s.prefix), s.prefix)
+        for s, _, total, _ in specs if uids[s.role].shape[0]}
+    rest = _strip_tables(params, table_paths(is_seq, spec))
+    rest_leaves = _leaves(rest)
+    live = [t.detach().requires_grad_(t.is_floating_point())
+            for t in rest_leaves]
+    p = _rebuild(rest, iter(live))
+    for s, *_ in specs:
+        p = set_path(p, s.path, subs[s.role])
+    if is_seq:
+        loss = seq_mod.seq_loss(p, spec, item_dev, user_dev, batch, gen,
+                                lookup_fns=lookup_fns, sampled=sampled,
+                                time_major=True, pop=pop)
+    else:
+        loss = mf_mod.mf_loss(p, spec, user_dev, item_dev, batch, gen,
+                              lookup_fns=lookup_fns, sampled=sampled,
+                              pop=pop, gather_cands=gather_cands)
+    roles = list(subs)
+    wrt = [subs[r] for r in roles] + [t for t in live if t.requires_grad]
+    grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                     materialize_grads=True))
+    g_subs = {r: next(grads) for r in roles}
+    g_rest = [next(grads) if t.requires_grad else torch.zeros_like(t)
+              for t in live]
+    return loss, g_subs, g_rest, rest, rest_leaves
+
+
 def make_sparse_step_core(is_seq: bool, spec, user_dev, item_dev,
                           rest_opt: Optimizer, base_lr: float,
                           optimizer: str, pop=None) -> Callable:
@@ -269,72 +337,23 @@ def make_sparse_step_core(is_seq: bool, spec, user_dev, item_dev,
     if optimizer not in ("adagrad", "sgd"):
         raise ValueError(
             f"sparse_update supports adagrad/sgd, not {optimizer!r}")
-    needs_neg = check_sparse_loss(is_seq, spec)
-    collect = _seq_tables if is_seq else _mf_tables
-    vocab = spec.vocab if is_seq else spec.item.schema.num_entities
+    check_sparse_loss(is_seq, spec)
     paths = table_paths(is_seq, spec)
     packed = optimizer == "adagrad"
 
     def step(state: TrainState, batch, gen: torch.Generator):
         params = state.params
-        first = get_path(params, paths[0])
-        if first.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "TF32 matmuls change the loss and its gradients; set "
-                "torch.backends.cuda.matmul.allow_tf32 = False")
+        check_tf32(get_path(params, paths[0]))
         lr = base_lr * state.lr_scale
-
-        # 1. pre-draw the negatives from the loss's own stream: the loss
-        # splits gen into (dropout, negatives) itself, and with `sampled`
-        # handed in its own draw is not made, so the negatives are the
-        # dense step's. mw/bbpr draw nothing.
-        if needs_neg:
-            _, g_neg = split(gen, first.device)
-            sampled = draw(g_neg, spec.num_sampled, vocab, spec.sampler, pop)
-            neg_ids = sampled[0]
-        else:
-            sampled = None
-            neg_ids = torch.zeros(0, dtype=torch.int32, device=first.device)
-
-        # 2. touched rows per table (static shapes, sentinel-padded)
-        specs = collect(spec, user_dev, item_dev, batch, neg_ids)
-        uids = {s.role: unique_rows(ids, total, cap=bound)
-                for s, ids, total, bound in specs}
-
-        # 3. the loss over subset tables; with packed Adagrad one gather
-        # brings both halves in and the loss sees the param half
+        sampled, specs, uids = touched_rows(is_seq, spec, user_dev,
+                                            item_dev, batch, gen, pop)
+        # 3. with packed Adagrad one gather brings both halves in
         sub_full = {s.role: build_subset(get_path(params, s.path),
                                          uids[s.role], s.prefix)
                     for s, *_ in specs}
-        subs = {role: (f[:, : f.shape[1] // 2] if packed else f)
-                .detach().clone().requires_grad_()
-                for role, f in sub_full.items()}
-        lookup_fns = {
-            s.role: make_subset_lookup(
-                subset_pos_map(uids[s.role], total, s.prefix), s.prefix)
-            for s, _, total, _ in specs if uids[s.role].shape[0]}
-        rest = _strip_tables(params, paths)
-        rest_leaves = _leaves(rest)
-        live = [t.detach().requires_grad_(t.is_floating_point())
-                for t in rest_leaves]
-        p = _rebuild(rest, iter(live))
-        for s, *_ in specs:
-            p = set_path(p, s.path, subs[s.role])
-        if is_seq:
-            loss = seq_mod.seq_loss(p, spec, item_dev, user_dev, batch, gen,
-                                    lookup_fns=lookup_fns, sampled=sampled,
-                                    time_major=True, pop=pop)
-        else:
-            loss = mf_mod.mf_loss(p, spec, user_dev, item_dev, batch, gen,
-                                  lookup_fns=lookup_fns, sampled=sampled,
-                                  pop=pop)
-        roles = list(subs)
-        wrt = [subs[r] for r in roles] + [t for t in live if t.requires_grad]
-        grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
-                                         materialize_grads=True))
-        g_subs = {r: next(grads) for r in roles}
-        g_rest = [next(grads) if t.requires_grad else torch.zeros_like(t)
-                  for t in live]
+        loss, g_subs, g_rest, rest, rest_leaves = subset_loss_and_grads(
+            is_seq, spec, params, specs, uids, sub_full, packed, user_dev,
+            item_dev, batch, gen, sampled, pop)
 
         # 4a. the other parameters: the port's optimizer, lr set per step
         rest_state = state.opt_state["rest"]

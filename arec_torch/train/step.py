@@ -135,27 +135,38 @@ def init_state(params, opt: Optimizer) -> TrainState:
     )
 
 
+def check_tf32(leaf: torch.Tensor) -> None:
+    """Raise when `leaf` is on the card and TF32 matmuls are on."""
+    if leaf.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "TF32 matmuls change the loss and its gradients; set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _loss_and_grads(loss_fn: Callable, state: TrainState, batch, gen):
+    """(loss, the param leaves, their gradients): the value and gradient
+    of loss_fn over every floating-point leaf (zeros for the others)."""
+    leaves = _leaves(state.params)
+    check_tf32(leaves[0])
+    live = [p.detach().requires_grad_(p.is_floating_point())
+            for p in leaves]
+    loss = loss_fn(_rebuild(state.params, iter(live)), batch, gen)
+    wrt = [p for p in live if p.requires_grad]
+    grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                     materialize_grads=True))
+    return loss, leaves, [next(grads) if p.requires_grad
+                          else torch.zeros_like(p) for p in live]
+
+
 def make_step_core(loss_fn: Callable, opt: Optimizer,
                    base_lr: float) -> Callable:
     """loss_fn(params, batch, gen) -> 0-d loss; returns
     step(state, batch, gen) -> (state, metrics), the metrics being loss, lr
     and grad_norm (the global norm over every gradient). arec's
-    with_grad_norm=False serves its mesh path, which is not ported."""
+    with_grad_norm=False, its mesh step's, is `make_mesh_step_core`."""
 
     def step(state: TrainState, batch, gen):
-        leaves = _leaves(state.params)
-        if leaves[0].is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "TF32 matmuls change the loss and its gradients; set "
-                "torch.backends.cuda.matmul.allow_tf32 = False")
-        live = [p.detach().requires_grad_(p.is_floating_point())
-                for p in leaves]
-        loss = loss_fn(_rebuild(state.params, iter(live)), batch, gen)
-        wrt = [p for p in live if p.requires_grad]
-        grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
-                                         materialize_grads=True))
-        grads = [next(grads) if p.requires_grad else torch.zeros_like(p)
-                 for p in live]
+        loss, leaves, grads = _loss_and_grads(loss_fn, state, batch, gen)
         lr = base_lr * state.lr_scale
         opt.update(grads, state.opt_state, leaves, lr)
         metrics = {"loss": loss.detach(), "lr": lr,
@@ -163,6 +174,63 @@ def make_step_core(loss_fn: Callable, opt: Optimizer,
                                                for g in grads))}
         return (TrainState(state.params, state.opt_state, state.lr_scale,
                            state.step + 1), metrics)
+
+    return step
+
+
+def make_mesh_step_core(loss_fn: Callable, opt: Optimizer, base_lr: float,
+                        mesh) -> Callable:
+    """The dense step on a ("data", "model") mesh: arec's GSPMD step
+    (`make_step_core(with_grad_norm=False)` jitted with the state's
+    shardings, `arec/train/loop.py:441-452`) with its collectives named.
+
+    loss_fn(params, batch_slab, gen) must return the GLOBAL loss with each
+    rank's backward giving its partial gradients (`mf_loss` / `seq_loss`
+    with mesh=, their lookups the exchange: `losses.mesh_mean`). Then:
+
+      * the replicated leaves' partials are summed over every rank (one
+        all_reduce of them packed into one buffer);
+      * each table shard's partial (already summed over "model" by the
+        exchange's backward) is summed over "data": the dense [Vp/T, W]
+        all-reduce per table that the sparse mesh step exists to avoid;
+      * the optimizer runs on each rank's leaves: its table state is
+        row-sharded like the tables, and every rank applies the same
+        summed gradient to the replicated leaves.
+
+    A table shard is a leaf that `dist.specs.table_role` names. No
+    grad_norm, as arec's mesh step: it would add a reduction over the
+    shards for observability alone. The state is updated in place."""
+    from arec_torch.dist.specs import (
+        DATA_AXIS, table_role, tree_map_with_keys,
+    )
+
+    data_group = mesh.get_group(DATA_AXIS)
+    n_data = mesh.size(0)
+
+    def step(state: TrainState, batch, gen):
+        loss, leaves, grads = _loss_and_grads(loss_fn, state, batch, gen)
+        sharded = _leaves(tree_map_with_keys(
+            lambda keys, _: table_role(keys) is not None, state.params))
+        with torch.no_grad():
+            rep = [i for i, s in enumerate(sharded)
+                   if not s and grads[i].is_floating_point()]
+            if rep:
+                flat = torch.cat([grads[i].reshape(-1) for i in rep])
+                torch.distributed.all_reduce(flat)
+                for i, part in zip(rep, flat.split(
+                        [grads[i].numel() for i in rep])):
+                    grads[i] = part.view_as(grads[i])
+            if n_data > 1:
+                for i, s in enumerate(sharded):
+                    if s:
+                        grads[i] = grads[i].contiguous()
+                        torch.distributed.all_reduce(grads[i],
+                                                     group=data_group)
+        lr = base_lr * state.lr_scale
+        opt.update(grads, state.opt_state, leaves, lr)
+        return (TrainState(state.params, state.opt_state, state.lr_scale,
+                           state.step + 1),
+                {"loss": loss.detach(), "lr": lr})
 
     return step
 

@@ -69,6 +69,21 @@
    exchange and masked lookups of a training batch's gather rows, bit for
    bit against `dense_lookup`, and the sharded top-k over 1,304,126 items
    against `topk_with_mask` up to ties, each timed beside it.
+   Then training on a device mesh (`mesh_train_phase`): syn_xing_full's
+   MF on its own 2 x 4 (the sparse mesh step, bf16) as 8 gloo ranks
+   sharing the card, through `cli.main.main`: 8 steps with a save, a
+   second invocation resuming to 16 and evaluating; an f32 run of 4 steps
+   and 4 of the dense mesh step in the same ranks; the same runs on
+   one card in the script's process: the f32 run agrees on every final
+   leaf (rtol 2e-4, atol 2e-5), the bf16 run within a stated bf16
+   tolerance (its largest gap printed), the sparse and dense mesh steps
+   agree, the mesh's checkpoint restores on one card and evaluates to the
+   mesh's recall; B5, B6 and B7 launch on every rank. c4's LSTM on 2 x 2
+   (the dense mesh step) for 4 steps against 4 on one card, B1's training
+   launch and B2 on every rank. A one-rank NCCL group runs the sparse
+   mesh step and the dense mesh step at full width against the one-card
+   steps (sparse bit for bit), ms per step beside. Startup, train()
+   seconds, peak memory and launches are printed per rank.
 8. The host input path at c4's shape on the twin: `seq_batches` and
    `eval_batches` packed by the C++ packer against the numpy twin (equal
    outputs, ms a batch each); the old pageable `.to()` against the pinned
@@ -155,8 +170,8 @@ TRAIN_STEPS = 20
 EVAL_BATCHES = 4
 
 XING = os.path.join(ROOT, "configs", "syn_xing_full.json")
-# syn_xing_full's MF model on one card (it trains there: training on its
-# own 2 x 4 mesh is ROADMAP A7.3; its checkpoint is served on that mesh in
+# syn_xing_full's MF model on one card (it trains on its own 2 x 4 mesh in
+# the mesh training phase, and its checkpoint is served on that mesh in
 # the Trainer phase). The interaction count shapes no tensor (1M interactions
 # still give 93 batches of 8192), so it is cut to keep the host-side prep
 # short; the user count shapes the user table and stays.
@@ -2403,6 +2418,635 @@ def mesh_nccl_phase(dev, sets=MF_SETS, cuts=MF_CUTS, n_queries=256):
         shutil.rmtree(store, ignore_errors=True)
 
 
+# ---- training on a device mesh ---------------------------------------
+
+# the bf16 mesh run against the same run on one card, per element: both
+# round the same operands to bf16 at the same points and differ by the
+# order of the sums over the batch (the rows split over ranks, the
+# gradients summed over them), which moves a bf16 operand by an ulp now
+# and then; the gap follows the updates, not the values, so the
+# tolerance is absolute. Set from two readings on the H100 (PERF.md §6):
+# the sound runs' largest gaps, 2.678e-05 (MF, 16 steps) and 2.053e-05
+# (c4, 4 steps), and the control that `_tolerance_control` reads in
+# every run: the one-card run's params before its first step
+# against its last, which must fall outside the tolerance in every table
+# leaf (the rows B5 / B6 / B7 feed), so a mesh run whose table updates
+# were lost could not pass.
+MESH_BF16_TOL = dict(rtol=0.0, atol=1e-4)
+# the f32 parity run (tests/test_multiprocess.py:124's tolerance)
+MESH_F32_TOL = dict(rtol=2e-4, atol=2e-5)
+# a collective that one rank misses fails the group after this long
+MESH_TIMEOUT_S = 300
+
+
+def _to_host(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_host(v) for v in x)
+    if hasattr(x, "detach"):
+        return x.detach().to("cpu", copy=True)
+    return x
+
+
+class _FirstCall:
+    """Stands in for a kernel wrapper in its module while entered (`with`):
+    keeps a host copy of the inputs of the first call that `when(args,
+    kwargs)` accepts, taken before the call, and of that call's outputs.
+    Its `launches` is the wrapper's own, so the wrapper counts on as
+    before."""
+
+    def __init__(self, module, attr, when=lambda a, k: True):
+        self.module, self.attr, self.when = module, attr, when
+        self.fn = getattr(module, attr)
+        self.args = self.kwargs = self.out = None
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, *a, **k):
+        first = self.args is None and self.when(a, k)
+        if first:
+            self.args, self.kwargs = _to_host(a), k
+        out = self.fn(*a, **k)
+        if first:
+            self.out = _to_host(out)
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+
+# kernel name → (module, wrapper attribute, plain version, tolerances, the
+# calls to take): the wrappers the mesh training runs launch
+def _first_call_specs():
+    from arec_torch.kernels import lstm_scan as tk
+    from arec_torch.kernels import row_scatter as trs
+    from arec_torch.kernels import sampled_softmax as tks
+    exact = {"float32": dict(rtol=0.0, atol=0.0)}
+    every = lambda a, k: True
+    return {
+        "lstm_scan_fwd": (tk, "lstm_scan_fwd", tk.lstm_layer_plain, TOL,
+                          lambda a, k: k.get("residuals", False)),
+        "lstm_scan_bwd": (tk, "lstm_layer_bwd", tk.lstm_layer_bwd_plain,
+                          BWD_TOL, every),
+        "sampled_ce_fwd": (tks, "sampled_ce_fwd", tks.sampled_ce_fwd_plain,
+                           CE_VAL, every),
+        "sampled_ce_bwd": (tks, "sampled_ce_bwd", tks.sampled_ce_bwd_plain,
+                           CE_GRAD, every),
+        trs.KERNEL: (trs, "row_scatter", trs.scatter_rows_set_plain, exact,
+                     every)}
+
+
+def _check_first_calls(caps, dev):
+    """Each kernel's first captured main-path call: its outputs against
+    the plain version on the same inputs, at the kernel checks'
+    tolerances (the scans at TOL / BWD_TOL, the CE kernels at CE_VAL /
+    CE_GRAD, each at the call's dtype; the row scatter bit for bit).
+    Returns {kernel: {"shapes", "dtype", "tolerance", "errs": max |err|
+    of each output}}."""
+    import torch
+    specs = _first_call_specs()
+    out = {}
+    for name, cap in caps.items():
+        assert cap.out is not None, f"{name}: no main-path call captured"
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in cap.args]
+        dtype = next((a for a in (*args, *cap.kwargs.values())
+                      if isinstance(a, torch.dtype)), torch.float32)
+        dt = str(dtype).split(".")[1]
+        want = specs[name][2](*args, **cap.kwargs)
+        got = cap.out
+        got, want = ((got, want) if isinstance(want, tuple)
+                     else ((got,), (want,)))
+        got = [g.to(dev) for g in got]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(
+                g, w, **specs[name][3][dt],
+                msg=lambda m: f"{name} against its plain version: {m}")
+        out[name] = {"shapes": [list(a.shape) for a in args
+                                if torch.is_tensor(a)],
+                     "dtype": dt, "tolerance": specs[name][3][dt],
+                     "errs": [float((g - w).abs().max())
+                              for g, w in zip(got, want)]}
+    return out
+
+
+def _mesh_train_rank(rank, world, out_dir, job):
+    """One gloo rank of a mesh training run (torch.multiprocessing), on
+    the shared card: each of job["runs"] through `cli.main.main` as its
+    users launch it (one rank a process), with its kernel launches
+    counted (those before the run's first evaluation apart), Trainer
+    startup and train() seconds, and peak device memory. On the last
+    rank, the first call of each kernel in run["check"] is captured
+    (`_FirstCall`) and held against its plain version after the run
+    (`_check_first_calls`)."""
+    import contextlib
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        # the context and the allocator, before their statistics are read
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        from arec_torch.cli.main import main as cli_main
+        from arec_torch.train import loop
+        counters = all_counters()
+        init, train, evaluate = (loop.Trainer.__init__, loop.Trainer.train,
+                                 loop.Trainer.evaluate)
+        results = []
+        for run in job["runs"]:
+            rec = {"name": run["name"], "before_eval": None}
+
+            def timed_init(self, *a, **k):
+                t0 = time.perf_counter()
+                init(self, *a, **k)
+                rec["startup_s"] = time.perf_counter() - t0
+
+            def timed_train(self):
+                t0 = time.perf_counter()
+                out = train(self)
+                rec["train_s"] = time.perf_counter() - t0
+                return out
+
+            def first_eval(self, *a, **k):
+                if rec["before_eval"] is None:
+                    rec["before_eval"] = {n: f.launches
+                                          for n, f in counters.items()}
+                return evaluate(self, *a, **k)
+            loop.Trainer.__init__, loop.Trainer.train = (timed_init,
+                                                         timed_train)
+            loop.Trainer.evaluate = first_eval
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            specs = _first_call_specs()
+            caps = ({k: _FirstCall(specs[k][0], specs[k][1], specs[k][4])
+                     for k in run.get("check", ())}
+                    if rank == world - 1 and dev.type == "cuda" else {})
+            for f in counters.values():              # ---- the main path
+                f.launches = 0
+            try:
+                with contextlib.ExitStack() as stack:
+                    for cap in caps.values():
+                        stack.enter_context(cap)
+                    rc, out = run_logged(cli_main, run["argv"], device=dev)
+            finally:
+                loop.Trainer.__init__, loop.Trainer.train = init, train
+                loop.Trainer.evaluate = evaluate
+            cuda = dev.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize(dev)
+            rec.update(rc=rc, launches={n: f.launches
+                                        for n, f in counters.items()},
+                       peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                                 if cuda else float("nan")),
+                       out=out if rank == 0 else "",
+                       summary=json.loads(out.strip().splitlines()[-1]),
+                       first_calls=_check_first_calls(caps, dev))
+            results.append(rec)
+        torch.save(results, os.path.join(out_dir, f"out.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_run(what, dev, root, shape, runs):
+    """`runs` (each {"name", "argv"}) in order on one data × model group of
+    gloo ranks that share the card (NCCL refuses two ranks on one GPU):
+    returns each rank's records (see `_mesh_train_rank`)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    world = shape[0] * shape[1]
+    out_dir = tempfile.mkdtemp(prefix="mesh-train-", dir=root)
+    mesh_sets = ["--set", f"mesh.data={shape[0]}",
+                 "--set", f"mesh.model={shape[1]}"]
+    job = {"device": "cuda:0" if dev.type == "cuda" else str(dev),
+           "runs": [{**r, "argv": r["argv"] + mesh_sets} for r in runs]}
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_train_rank, args=(world, out_dir, job), nprocs=world)
+        wall_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(out_dir, f"out.{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"{what}: {world} gloo ranks sharing the card ({shape[0]} x "
+        f"{shape[1]}; not a multi-GPU measurement), spawn to the last rank "
+        f"{wall_s:.2f} s")
+    for i, run in enumerate(runs):
+        recs = [r[i] for r in res]
+        assert all(r["rc"] == 0 for r in recs), [r["rc"] for r in recs]
+        assert all(r["summary"] == recs[0]["summary"] for r in recs)
+        log(f"  {run['name']}: summary {recs[0]['summary']}; Trainer "
+            f"startup per rank {[round(r['startup_s'], 2) for r in recs]} "
+            f"s; train() per rank {[round(r['train_s'], 2) for r in recs]} "
+            f"s; peak device memory per rank "
+            f"{[round(r['peak_gib'], 3) for r in recs]} GiB; launches per "
+            f"rank {_per_rank(recs)}")
+        for line in recs[0]["out"].splitlines():
+            if line.startswith(("[metrics]", "[ckpt]")):
+                log(f"    rank 0 {line}")
+        checked = recs[-1]["first_calls"]
+        if dev.type == "cuda":
+            assert set(checked) == set(run.get("check", ())), checked
+        for k, c in checked.items():
+            log(f"    rank {world - 1}: {k}'s first call of the run against "
+                f"its plain version on the same inputs: shapes {c['shapes']}"
+                f" {c['dtype']}, max abs err of each output "
+                f"{[float(f'{e:.3e}') for e in c['errs']]} (tolerance "
+                f"{c['tolerance']})")
+    return res
+
+
+def _per_rank(recs, key="launches"):
+    return {k: [r[key][k] for r in recs] for k in recs[0][key]
+            if any(r[key][k] for r in recs)}
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) of a state tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _compare_ckpts(what, dev, a_dir, b_dir, step, tol, unpack=None):
+    """Two checkpoints' states, leaf by leaf on the card: (bit-equal
+    leaves, leaves, max |a − b|), each leaf held to `tol`. unpack: the
+    packed tables' paths whose param halves `a` holds whole (a sparse
+    state against a dense one: params only)."""
+    import torch
+    a = load_ckpt_state(a_dir, step)
+    b = load_ckpt_state(b_dir, step)
+    if unpack is not None:
+        a, b = {"params": a["params"]}, {"params": b["params"]}
+
+    la, lb = dict(_named_leaves(a)), dict(_named_leaves(b))
+    assert set(la) == set(lb), (sorted(la), sorted(lb))
+    equal, gap = 0, 0.0
+    for k in la:
+        x, y = la[k].to(dev), lb[k].to(dev)
+        if unpack is not None and x.dim() == 2 and x.shape[1] == 2 * \
+                y.shape[1]:
+            x = x[:, : y.shape[1]]
+        assert x.shape == y.shape, (k, x.shape, y.shape)
+        if torch.equal(x, y):
+            equal += 1
+            continue
+        gap = max(gap, float((x.double() - y.double()).abs().max()))
+        torch.testing.assert_close(x, y, **tol, msg=lambda m: f"{k}: {m}")
+    log(f"  {what}: {equal} of {len(la)} leaves bit-equal, the largest "
+        f"gap {gap:.3e} (tolerance rtol {tol['rtol']}, atol "
+        f"{tol['atol']})")
+    return equal, len(la), gap
+
+
+def _host_params(tr):
+    """A Trainer's params as they stand, copied to the host, by path."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in _named_leaves({"params": tr.state.params})}
+
+
+def _tolerance_control(what, dev, init, b_dir, step, tol):
+    """The control of a tolerance: `init` (a one-card run's params before
+    its first step, `_host_params`) against that run's checkpoint at
+    `step`, as a mesh run whose updates were all lost would stand. Prints
+    each param leaf's largest |Δ| over its tolerance (atol + rtol·|x|);
+    every table leaf must read above 1. Returns {leaf: that share}."""
+    b = dict(_named_leaves({"params": load_ckpt_state(b_dir, step)[
+        "params"]}))
+    assert set(b) == set(init), (sorted(b), sorted(init))
+    share = {}
+    for k, x0 in init.items():
+        x, y = x0.to(dev).double(), b[k].to(dev).double()
+        share[k] = float(((x - y).abs() / (tol["atol"] + tol["rtol"]
+                                             * y.abs())).max())
+    log(f"  {what}: control, the one-card run's params before its first "
+        f"step against step {step}, largest |change| over the tolerance "
+        f"per leaf: { {k: round(v, 2) for k, v in share.items()} }")
+    tables = [k for k in share if "/tables/" in k or "/item_out" in k]
+    assert tables and all(share[k] > 1.0 for k in tables), (what, share)
+    return share
+
+
+def mesh_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
+                     c4_cuts=CUTS, root=None, steps=16, f32_steps=4,
+                     c4_steps=4):
+    """Training on a device mesh, on a temporary train_dir the phase
+    deletes at its end:
+    (a) syn_xing_full's MF on its own 2 x 4 (row_shard "shuffle", the
+        sparse mesh step, bf16), 8 gloo ranks sharing the card, through
+        `cli.main.main`: `steps`/2 steps with a save, then a second
+        invocation that resumes and trains to `steps`, evaluating; then
+        the same in f32 for `f32_steps`, and the dense mesh step (f32,
+        sparse_update false) as long, in the same ranks. Against one
+        card (this process, the same global batches and negatives): the
+        f32 run agrees on every final leaf at MESH_F32_TOL, the bf16 run
+        at MESH_BF16_TOL (with its control, `_tolerance_control`),
+        the sparse and dense mesh steps agree (SPARSE_DENSE), the mesh's
+        checkpoint restores on one card and evaluates to the mesh's
+        recall; B5, B6 and B7 launch on every rank, and their first calls
+        on the last rank match their plain versions (`_FirstCall`).
+    (b) c4's LSTM on 2 x 2 (the dense mesh step, bf16), 4 ranks, for
+        `c4_steps` steps, against as many on one card (as the bf16 run
+        above); B1's training launch and B2 on every rank, and B1, B2,
+        B5 and B6's first calls on the last rank against plain.
+    (c) `mesh_nccl_train`: a one-rank NCCL group.
+    Returns ({kernel: launches summed over the ranks and runs}, {run:
+    {kernel: launches per rank}})."""
+    import shutil
+    import tempfile
+
+    import torch
+    from arec_torch.cli.main import load_config, parse_args
+    from arec_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "_train") if root is None else root
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-mt-", dir=base)
+    counters = all_counters()
+    launches = {k: 0 for k in counters}
+    per_rank = {}
+
+    def add(name, recs):
+        per_rank[name] = _per_rank(recs)
+        for r in recs:
+            for k, n in r["launches"].items():
+                launches[k] += n
+
+    def mf_argv(name, max_steps, **extra):
+        s = {**sets, **{k: v for k, (_, v) in cuts.items()},
+             "train.steps_per_checkpoint": 8, "train.eval_max_batches": 4,
+             "train.async_ckpt": "true",
+             "train.train_dir": os.path.join(root, name),
+             "train.max_steps": max_steps, **extra}
+        return ["--config", XING] + [a for k, v in s.items()
+                                     for a in ("--set", f"{k}={v}")]
+    f32 = {"train.compute_dtype": "float32", "train.steps_per_dispatch": 2,
+           "train.steps_per_checkpoint": f32_steps}
+    c4_sets = {**twin, **{k: v for k, (_, v) in c4_cuts.items()},
+               "data.data_dir": DATA_DIR, "train.max_steps": c4_steps,
+               "train.steps_per_checkpoint": 8,
+               "train.eval_max_batches": 4}
+    # the datasets are prepared here, once, before the ranks load them
+    load_mf(sets, cuts)
+    load(C4, c4_sets)
+    try:
+        # ---- (a) syn_xing_full on its own 2 x 4 ---------------------------
+        runs = [{"name": "bf16 to the first save",
+                 "argv": mf_argv("bf16", steps // 2),
+                 "check": ("sampled_ce_fwd", "sampled_ce_bwd", "row_scatter")},
+                {"name": "bf16 resumed", "argv": mf_argv("bf16", steps)},
+                {"name": "f32 sparse", "argv": mf_argv(
+                    "f32", f32_steps, **f32)},
+                {"name": "f32 dense", "argv": mf_argv(
+                    "f32_dense", f32_steps, **f32,
+                    **{"train.sparse_update": "false"}),
+                 "check": ("sampled_ce_fwd", "sampled_ce_bwd")}]
+        res = mesh_train_run("(a) syn_xing_full's MF", dev, root, MESH_MF,
+                             runs)
+        for i, run in enumerate(runs):
+            recs = [r[i] for r in res]
+            add(f"mf {run['name']}", recs)
+            if run["name"].startswith("bf16") and dev.type == "cuda":
+                for k in ("sampled_ce_fwd", "sampled_ce_bwd", "row_scatter"):
+                    assert all(r["launches"][k] > 0 for r in recs), (k, recs)
+        assert f"[ckpt] restored step {steps // 2}" in res[0][1]["out"]
+        mesh_recall = res[0][1]["summary"]["recall_at_k"]
+        # the same runs on one card, in this process
+        one = {}
+        for name, argv in (("one_bf16", mf_argv("one_bf16", steps)),
+                           ("one_f32", mf_argv("one_f32", f32_steps,
+                                               **f32))):
+            cfg = load_config(parse_args(argv))
+            t0 = time.perf_counter()
+            for f in counters.values():
+                f.launches = 0
+            tr = Trainer(cfg, device=dev)
+            if name == "one_bf16":
+                init = _host_params(tr)
+            one[name] = tr.train()
+            tr.close()
+            del tr
+            free()
+            ran = {k: f.launches for k, f in counters.items() if f.launches}
+            log(f"  one card, {name}: {one[name]} in "
+                f"{time.perf_counter() - t0:.2f} s; launches {ran}")
+        d = lambda name: os.path.join(root, name)
+        _compare_ckpts("(a) f32 parity: the mesh run against one card at "
+                       f"step {f32_steps}", dev, d("f32"), d("one_f32"),
+                       f32_steps, MESH_F32_TOL)
+        _compare_ckpts(f"(a) bf16: the mesh run against one card at step "
+                       f"{steps}", dev, d("bf16"), d("one_bf16"), steps,
+                       MESH_BF16_TOL)
+        _tolerance_control("(a) bf16", dev, init, d("one_bf16"), steps,
+                           MESH_BF16_TOL)
+        del init
+        _compare_ckpts("(a) the sparse mesh step against the dense mesh "
+                       f"step at step {f32_steps}, params (f32)", dev,
+                       d("f32"), d("f32_dense"), f32_steps, SPARSE_DENSE,
+                       unpack=True)
+        restored = Trainer(load_config(parse_args(
+            mf_argv("bf16", steps))).override(
+            {"mesh.data": 1, "mesh.model": 1}), serve_only=True, device=dev)
+        assert int(restored.state.step) == steps
+        one_recall = restored.evaluate()
+        n_eval = restored.cfg.train.eval_batch_size * 4
+        log(f"  (a) the mesh's step-{steps} checkpoint restored on one "
+            f"card: Recall@30 {one_recall:.6f} over {n_eval} eval rows, "
+            f"the mesh's {mesh_recall:.6f}; the one-card bf16 run's "
+            f"{one['one_bf16']['recall_at_k']:.6f}")
+        # equal up to ties: at most one eval row may flip
+        assert abs(one_recall - mesh_recall) <= 1.0 / n_eval + 1e-9
+        del restored
+        free()
+        for name in ("bf16", "f32", "f32_dense", "one_bf16", "one_f32"):
+            shutil.rmtree(d(name), ignore_errors=True)
+
+        # ---- (b) c4 on 2 x 2: the dense mesh step -------------------------
+        def c4_argv(name):
+            s = {**c4_sets, "train.train_dir": d(name)}
+            return ["--config", C4] + [a for k, v in s.items()
+                                       for a in ("--set", f"{k}={v}")]
+        res4 = mesh_train_run("(b) c4's LSTM", dev, root, MESH_C4,
+                              [{"name": "dense", "argv": c4_argv("c4"),
+                                "check": ("lstm_scan_fwd", "lstm_scan_bwd",
+                                          "sampled_ce_fwd",
+                                          "sampled_ce_bwd")}])
+        recs = [r[0] for r in res4]
+        add("c4 dense", recs)
+        per_rank["c4 dense, before its evaluation"] = _per_rank(
+            recs, "before_eval")
+        if dev.type == "cuda":
+            for k in ("lstm_scan_fwd", "lstm_scan_bwd", "sampled_ce_fwd",
+                      "sampled_ce_bwd"):
+                assert all(r["before_eval"][k] > 0 for r in recs), (k, recs)
+        cfg4 = load_config(parse_args(c4_argv("one_c4")))
+        t0 = time.perf_counter()
+        tr = Trainer(cfg4, device=dev)
+        init = _host_params(tr)
+        one4 = tr.train()
+        tr.close()
+        del tr
+        free()
+        log(f"  one card, c4 {c4_steps} steps: {one4} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        _compare_ckpts(f"(b) c4 bf16: the 2 x 2 run against one card at "
+                       f"step {c4_steps}", dev, d("c4"), d("one_c4"), c4_steps,
+                       MESH_BF16_TOL)
+        _tolerance_control("(b) c4 bf16", dev, init, d("one_c4"), c4_steps,
+                           MESH_BF16_TOL)
+        del init
+        for name in ("c4", "one_c4"):
+            shutil.rmtree(d(name), ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # ---- (c) a one-rank NCCL group: its mesh steps' launches alone -----
+    nccl = mesh_nccl_train(dev, sets, cuts)
+    per_rank["nccl 1 x 1"] = {k: [n] for k, n in nccl.items() if n}
+    for k, n in nccl.items():
+        launches[k] += n
+    log(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s; "
+        f"launches summed over ranks and runs "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, per_rank
+
+
+def mesh_nccl_train(dev, sets=MF_SETS, cuts=MF_CUTS, reps=5):
+    """The mesh training steps on a one-rank NCCL group at syn_xing_full's
+    full width (a 1 x 1 mesh handed to the Trainer's mesh set-up): the
+    sparse mesh step core and the dense mesh step, each from the state of
+    a one-card Trainer and on its first batch, against the one-card step
+    (sparse: bit for bit; dense: SPARSE_DENSE, as the exchange's backward
+    sums duplicate rows in another order than `embedding`'s); ms per step
+    beside the one-card step's. Returns {kernel: launches} of the mesh
+    steps alone (the one-card steps beside them are not counted)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from arec_torch import bridge
+    from arec_torch.dist.global_io import shard_from_hosts
+    from arec_torch.train.loop import Trainer, _MeshServing
+    from arec_torch.train.step import TrainState, step_generator
+
+    cfg, _, _ = load_mf(sets, cuts)
+    counters = all_counters()
+    launches = dict.fromkeys(counters, 0)
+    os.makedirs(os.path.join(ROOT, "_train"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke-nccl-train-",
+                             dir=os.path.join(ROOT, "_train"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+
+    def clone(state):
+        return TrainState(**bridge.to_torch(state._asdict(), dev))
+
+    def copy(state):
+        def c(t):
+            if isinstance(t, dict):
+                return {k: c(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(c(v) for v in t)
+            return t.clone()
+        return TrainState(**c(state._asdict()))
+
+    try:
+        for sparse in (True, False):
+            c = cfg.override({"train.sparse_update": str(sparse).lower(),
+                              "train.train_dir": os.path.join(store, "t")})
+            tr = Trainer(c, device=dev)
+            batch = shard_from_hosts(next(tr._batches(0)), None, dev)
+            gen = lambda i: step_generator(c.train.seed, i)
+            state0 = copy(tr.state)
+            one, m_one = tr.step_fn(copy(state0), batch, gen(0))
+            tr.sh = _MeshServing(c, tr.spec, tr.is_seq, dev)
+            mesh_step = counted(tr._make_step(), counters, launches)
+            mesh, m_mesh = mesh_step(bridge.shard_state(
+                state0._asdict(), tr.sh, sparse, dev), batch, gen(0))
+            got = tr.sh.canonical(mesh, sparse, tr._natural_rows)
+            torch.cuda.synchronize(dev)
+            loss = (float(m_one["loss"]), float(m_mesh["loss"]))
+            gaps, equal, n = 0.0, 0, 0
+            for (k, a), (_, b) in zip(
+                    _named_leaves(one._asdict()),
+                    _named_leaves(clone(got)._asdict())):
+                n += 1
+                if torch.equal(a, b):
+                    equal += 1
+                    continue
+                assert not sparse, f"sparse mesh step differs at {k}"
+                gaps = max(gaps, float((a.double() - b.double()).abs().max()))
+                torch.testing.assert_close(b, a, **SPARSE_DENSE)
+            if sparse:
+                assert loss[0] == loss[1], loss
+            else:
+                torch.testing.assert_close(loss[1], loss[0], rtol=1e-5,
+                                           atol=0.0)
+            del got
+            t = {}
+            for name, fn, st in (("one card", tr.step_fn, one),
+                                 ("1 x 1 mesh", mesh_step, mesh),
+                                 ("1 x 1 mesh ", mesh_step, mesh),
+                                 ("one card ", tr.step_fn, one)):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for i in range(reps):
+                    st, _ = fn(st, batch, gen(1 + i))
+                torch.cuda.synchronize(dev)
+                t.setdefault(name.strip(), []).append(
+                    (time.perf_counter() - t0) * 1e3 / reps)
+            kind = "sparse" if sparse else "dense"
+            for name, fn, st in (("one card", tr.step_fn, one),
+                                 ("the 1 x 1 mesh", mesh_step, mesh)):
+                device_breakdown(f"one {kind} step on {name}",
+                                 lambda: fn(st, batch, gen(1 + reps)))
+            log(f"mesh (c) one-rank NCCL group, syn_xing_full "
+                f"{kind} step at full width, "
+                f"bf16: loss one card {loss[0]:.7f}, 1 x 1 mesh "
+                f"{loss[1]:.7f}; {equal} of {n} state leaves bit-equal, the "
+                f"largest gap {gaps:.3e}; ms per step (host clock to a "
+                f"synchronize, {reps} steps, order one, mesh, mesh, one) "
+                f"{ {k: [round(x, 3) for x in v] for k, v in t.items()} }")
+            del tr, one, mesh, state0, batch
+            free()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def counted(fn, counters, into):
+    """fn, with the kernel launches made inside each of its calls added to
+    into[kernel] (counters: `all_counters()`)."""
+    def call(*a, **k):
+        before = {n: f.launches for n, f in counters.items()}
+        out = fn(*a, **k)
+        for n, f in counters.items():
+            into[n] += f.launches - before[n]
+        return out
+    return call
+
+
+
 # ---- the host input path, raw-data prep and the approximate top-k -------
 
 # A GPU spin of `ms` milliseconds: torch.cuda._sleep counts cycles, at
@@ -3030,6 +3674,8 @@ def main() -> int:
     free()
     mesh_nccl_phase(dev)
     free()
+    through_mesh_train, mesh_train_per_rank = mesh_train_phase(dev)
+    free()
     input_path_phase(dev)
     free()
     through_approx = approx_topk_phase(dev)
@@ -3195,9 +3841,15 @@ def main() -> int:
         k["launches_mesh"] = sum(m[k["name"]] for m in through_mesh.values())
         k["launches_mesh_per_rank"] = {
             run: per.get(k["name"], []) for run, per in mesh_per_rank.items()}
+        # the mesh training runs (gloo ranks sharing the card, and the
+        # one-rank NCCL group), summed over ranks and runs
+        k["launches_mesh_train"] = through_mesh_train[k["name"]]
+        k["launches_mesh_train_per_rank"] = {
+            run: per.get(k["name"], [])
+            for run, per in mesh_train_per_rank.items()}
         k["launches"] += (k["launches_trainer"] + k["launches_raw_data"]
                           + k["launches_approx_serving"]
-                          + k["launches_mesh"])
+                          + k["launches_mesh"] + k["launches_mesh_train"])
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)

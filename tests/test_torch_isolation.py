@@ -337,3 +337,52 @@ def test_serves_on_a_gloo_mesh_with_jax_and_arec_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("served")
+
+
+_CHILD_MESH_TRAIN = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "arec"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    from arec_torch.config import (
+        Config, DataConfig, MeshConfig, ModelConfig, TrainConfig,
+    )
+    from arec_torch.data.io import load_or_prepare
+    from torch_mesh_worker import run_ranks
+
+    torch.set_num_threads(1)
+    cfg = Config(
+        data=DataConfig(data_dir=sys.argv[1], syn_users=60, syn_items=50,
+                        syn_interactions=600),
+        model=ModelConfig(model="mf", dim=8, dense_vocab_threshold=12),
+        train=TrainConfig(sparse_update=True, max_steps=2, batch_size=32,
+                          train_dir=sys.argv[1] + "/t"),
+        mesh=MeshConfig(data=1, model=2))
+    load_or_prepare(cfg.data)
+    res = run_ranks("train", 2, sys.argv[1], {"cases": [{
+        "config": cfg.to_json(), "train_dir": cfg.train.train_dir}]})
+    assert [r[0]["summary"]["steps"] for r in res] == [2, 2]
+    assert all(r[0]["clean"] for r in res)
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "arec")
+                   for m in sys.modules)
+    print("trained", res[0][0]["summary"]["steps"])
+""")
+
+
+def test_trains_on_a_gloo_mesh_with_jax_and_arec_blocked(tmp_path):
+    """syn MF's sparse mesh step (train/sparse_mesh.py) on a 1 x 2 mesh:
+    two spawned gloo ranks train 2 steps through the Trainer, with jax
+    and arec blocked in the parent, and neither imported by the ranks."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_MESH_TRAIN,
+                           str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("trained 2")

@@ -12,6 +12,14 @@
     two ranks on one GPU).
   * A rank whose local rank has no card raises, and a bring-up that
     cannot reach its master raises with its coordinates.
+  * Training on the one-rank NCCL group: the table gradient through the
+    exchange (its reverse all-to-all and the all_gather's backward)
+    equals `dense_lookup`'s; the sparse mesh step and the dense mesh step
+    (the Trainer's mesh set-up on a 1 x 1 mesh, the kernels on the card)
+    from a one-card Trainer's state equal its one-card steps: the sparse
+    one bit for bit, the dense one at tests/test_sparse.py's rtol 2e-5,
+    atol 1e-6 (the exchange's backward sums duplicate rows in another
+    order than `embedding`'s).
 
 Marked `cuda`: they skip where no CUDA device is present. On a machine with
 one (and no jax), run them without the jax-loading conftest:
@@ -171,3 +179,101 @@ def test_gloo_ranks_share_the_card_with_cuda_tensors(dev, tmp_path):
         assert out["all_reduce"] == [1.0, 1.0]
         assert out["rows_all_to_all"] == out["rows_want"]
         assert out["device"] == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup", [False, True])
+def test_exchange_backward_on_an_nccl_rank(mesh, dedup):
+    from arec_torch.dist.specs import shard_rows
+    from arec_torch.tables.engine import dense_lookup
+    from arec_torch.tables.layout import RowPerm
+    from arec_torch.tables.sharded import make_sharded_lookup
+
+    dev, m = mesh
+    rows, width = 5000, 129
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn(rows, width, generator=g, device=dev)
+    ids = torch.from_numpy(np.minimum(
+        np.random.default_rng(3).zipf(1.3, 4096) - 1, rows - 1).astype(
+            np.int32)).to(dev)
+    cot = torch.randn(4096, width, generator=g, device=dev)
+    perm = RowPerm.for_rows(rows, 5)
+    shard = shard_rows(perm.permute_table(table), m).clone().requires_grad_()
+    (make_sharded_lookup(m, dedup=dedup, perm=perm)(shard, ids) * cot
+     ).sum().backward()
+    # each row's gradient is a sum of its requests' cotangent rows, added
+    # in an order the card's atomics choose: held to the f64 sum within
+    # n·2^-23·Σ|terms| for a row of n requests
+    long = ids.long()
+    exact = torch.zeros(rows, width, dtype=torch.float64, device=dev)
+    exact.index_add_(0, long, cot.double())
+    mass = torch.zeros_like(exact).index_add_(0, long, cot.double().abs())
+    n = torch.bincount(long, minlength=rows).double()[:, None]
+    bound = perm.permute_table(n * 2.0 ** -23 * mass)
+    err = (shard.grad.double() - perm.permute_table(exact)).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _copy(tree):
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy(v) for v in tree)
+    return tree.clone()
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [True, False])
+def test_train_step_on_an_nccl_rank(mesh, sparse, tmp_path):
+    from arec_torch import bridge
+    from arec_torch.config import (
+        Config, DataConfig, MeshConfig, ModelConfig, TrainConfig,
+    )
+    from arec_torch.dist.global_io import shard_from_hosts
+    from arec_torch.train.loop import Trainer, _MeshServing
+    from arec_torch.train.step import TrainState, step_generator
+
+    dev, _ = mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(
+        data=DataConfig(data_dir=str(tmp_path / "d"), syn_users=3000,
+                        syn_items=2500, syn_interactions=40000),
+        model=ModelConfig(model="mf", dim=32, dense_vocab_threshold=12),
+        train=TrainConfig(batch_size=512, num_sampled=256,
+                          sparse_update=sparse, compute_dtype="bfloat16",
+                          train_dir=str(tmp_path / "t")),
+        mesh=MeshConfig(row_shard="shuffle"))
+    tr = Trainer(cfg, device=dev)
+    batch = shard_from_hosts(next(tr._batches(0)), None, dev)
+    state0 = TrainState(**_copy(tr.state._asdict()))
+    one, m_one = tr.step_fn(TrainState(**_copy(state0._asdict())), batch,
+                            step_generator(0, 0))
+    tr.sh = _MeshServing(cfg, tr.spec, tr.is_seq, dev)
+    step = tr._make_step()
+    got, m_mesh = step(bridge.shard_state(state0._asdict(), tr.sh, sparse,
+                                          dev), batch, step_generator(0, 0))
+    got = tr.sh.canonical(got, sparse, tr._natural_rows)
+    for (k, a), (_, b) in zip(_leaves(one._asdict()),
+                              _leaves(got._asdict())):
+        a, b = a.cpu(), b.cpu()     # the gathered tables are on the host
+        if sparse:
+            assert torch.equal(a, b), k
+        else:
+            torch.testing.assert_close(b, a, rtol=2e-5, atol=1e-6,
+                                       msg=lambda msg: f"{k}: {msg}")
+    if sparse:
+        assert float(m_one["loss"]) == float(m_mesh["loss"])
+    else:
+        assert float(m_mesh["loss"]) == pytest.approx(float(m_one["loss"]),
+                                                      rel=1e-5)

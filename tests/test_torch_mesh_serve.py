@@ -345,10 +345,58 @@ def test_evaluate_and_recommend_match_arec_on_its_mesh(sides, family, world,
                                                f"{family}.{r}.tsv"))
 
 
-def test_training_on_a_mesh_raises(sides):
-    cfg = sides["mf"]["cfg"].override({"mesh.data": 2, "mesh.model": 4})
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        Trainer(cfg, device="cpu").train()
+def test_training_on_a_mesh_raises(sides, tmp_path):
+    """Training on the mesh, refused until mesh training was ported, now
+    runs from the checkpoint these tests serve (arec's trained state,
+    written on one device): 2 more steps on 2 x 4 restore step 16 and
+    match 2 steps of the one-device Trainer from it (the same negatives:
+    the step's key is the same on every rank), each step's loss at rtol
+    2e-4 and every parameter after them at rtol 2e-4, atol 2e-6; the
+    mesh's checkpoint serves on one device."""
+    import shutil
+    src = sides["mf"]["cfg"].train.train_dir
+    sets = {"train.max_steps": 18, "train.steps_per_checkpoint": 1,
+            "train.steps_per_dispatch": 1,
+            "train.compute_dtype": "float32"}
+    runs = {}
+    for name, mesh in (("one", (1, 1)), ("mesh", (2, 4))):
+        d = str(tmp_path / name)
+        shutil.copytree(src, d)
+        runs[name] = sides["mf"]["cfg"].override({
+            **sets, "train.train_dir": d, "mesh.data": mesh[0],
+            "mesh.model": mesh[1]})
+    Trainer(runs["one"], device="cpu").train()
+    res = run_ranks("train", 8, tmp_path, {"cases": [{
+        "config": runs["mesh"].to_json(),
+        "train_dir": runs["mesh"].train.train_dir}]})
+    assert "[ckpt] restored step 16" in res[0][0]["stdout"]
+    losses = {}
+    for name, cfg in runs.items():
+        with open(os.path.join(cfg.train.train_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        losses[name] = [r["loss"] for r in recs if "loss" in r]
+    assert len(losses["one"]) == 2
+    np.testing.assert_allclose(losses["mesh"], losses["one"], rtol=2e-4)
+    want = Checkpointer(runs["one"].train.train_dir)
+    got = Checkpointer(runs["mesh"].train.train_dir)
+    assert want.latest_step() == got.latest_step() == 18
+    load = lambda c: torch.load(os.path.join(c.path, "18", "state.pt"),
+                                weights_only=True)["params"]
+    for (k, a), (_, b) in zip(_named(load(got)), _named(load(want))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4,
+                                   atol=2e-6, err_msg=k)
+    one = Recommender(runs["mesh"].override({"mesh.data": 1,
+                                             "mesh.model": 1}),
+                      serve_batch=16, device="cpu")
+    assert one._restored_step == 18
+
+
+def _named(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
 
 
 def test_entry_points_on_two_ranks(sides, tmp_path):

@@ -154,24 +154,57 @@ def test_batch_ht_requires_pop():
         tmf.mf_loss(tparams, tspec, *tdevs, batch, generator(0))
 
 
-def test_mesh_paths_raise():
-    *_, tspec, jparams, _, tdevs = _setup()
-    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
-    batch = {"user": torch.arange(4, dtype=torch.int32),
-             "pos_item": torch.arange(4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmf.mf_loss(tparams, tspec, *tdevs, batch, generator(0),
-                    mesh=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmf.mf_loss(tparams, tspec, *tdevs, batch, generator(0),
-                    gather_cands=lambda *a: a)
+def test_mesh_paths_raise(tmp_path):
+    """The mesh paths of `mf_loss`, which raised until mesh training was
+    ported, now run: on a 2 x 2 mesh of gloo ranks (`mesh=`, the exchange
+    lookups on row-sharded params, each rank its slab of the batch) `ce`
+    through the sharded fused CE and `mw` with its candidates gathered
+    over "data" (`gather_cands`) give arec's one-device loss and
+    gradients on the whole batch."""
+    from torch_mesh_worker import run_ranks
+
+    cases, wants = [], []
+    for loss in ("ce", "mw"):
+        cfg, ds, _, jspec, _, jparams, jdevs, _ = _setup(loss)
+        batch = next(jds.mf_batches(ds, B, seed=1, epoch=0))
+        sampled = (_negatives(jspec.item.schema.num_entities,
+                              "log_uniform", seed=5)
+                   if loss == "ce" else None)
+
+        def jloss(params):
+            return jmf.mf_loss(
+                params, jspec, *jdevs,
+                {k: jnp.asarray(x) for k, x in batch.items()},
+                jax.random.key(0), pop=None,
+                sampled=None if sampled is None else tuple(
+                    map(jnp.asarray, sampled)))
+        wants.append(jax.value_and_grad(jloss)(jparams))
+        cases.append({"mesh": (2, 2), "config": cfg.to_json(),
+                      "params": jax.tree.map(np.asarray, jparams),
+                      "batch": batch, "sampled": sampled})
+    res = run_ranks("mf_loss_mesh", 4, tmp_path, {"cases": cases})
+    for i, (want, want_g) in enumerate(wants):
+        for r in res:
+            np.testing.assert_allclose(r[i]["loss"], float(want), **VAL)
+        flat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(g)
+                for path, g in jax.tree_util.tree_leaves_with_path(want_g)}
+        for key, g in flat.items():
+            if "tables" in key.split("/"):     # the row blocks, model order
+                got = np.concatenate([res[m][i]["grads"][key]
+                                      for m in range(2)])[: g.shape[0]]
+            else:
+                got = res[0][i]["grads"][key]
+            np.testing.assert_allclose(got, g, err_msg=key, **GRAD)
 
 
 @pytest.mark.parametrize("config", ["syn_mf.json", "syn_sharded.json"])
 def test_spec_refuses_a_device_mesh(config, tmp_path):
     """`MFSpec.from_config` builds on syn_sharded.json's 2 x 4 mesh, as on
-    syn_mf.json's 1 x 1 (the port serves and evaluates on a mesh); training
-    on the mesh still raises NotImplementedError naming ROADMAP A7.3."""
+    syn_mf.json's 1 x 1; and training on that mesh, refused until mesh
+    training was ported, now runs: `cli.main` trains syn_sharded.json at
+    a tiny size on 8 gloo ranks, every rank prints the same summary, and
+    a one-device Trainer restores the mesh's checkpoint and evaluates
+    to its recall."""
     cfg = load_config(parse_args(["--config", os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "configs", config), "--set", f"data.data_dir={tmp_path}"]))
@@ -179,10 +212,31 @@ def test_spec_refuses_a_device_mesh(config, tmp_path):
     spec = tmf.MFSpec.from_config(cfg, tds_.user_schema, tds_.item_schema)
     assert spec.user.dim == cfg.model.dim
     if cfg.mesh.data * cfg.mesh.model > 1:
+        import json
+        from arec_torch.data.io import load_or_prepare
         from arec_torch.train.loop import Trainer
-        with pytest.raises(NotImplementedError, match="A7.3"):
-            Trainer(cfg, device="cpu").train()
-        assert not os.listdir(tmp_path)         # refused before any prep
+        from torch_mesh_worker import run_ranks
+        sets = {"data.syn_users": 120, "data.syn_items": 90,
+                "data.syn_interactions": 2400, "model.dim": 8,
+                "train.batch_size": 32, "train.num_sampled": 16,
+                "train.max_steps": 2, "train.eval_batch_size": 32,
+                "train.train_dir": str(tmp_path / "t")}
+        argv = ["--config", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", config),
+                "--set", f"data.data_dir={tmp_path}"] + [
+            a for k, v in sets.items() for a in ("--set", f"{k}={v}")]
+        cfg = load_config(parse_args(argv))
+        load_or_prepare(cfg.data)
+        world = cfg.mesh.data * cfg.mesh.model
+        res = run_ranks("train", world, tmp_path, {"cases": [{
+            "argv": argv, "train_dir": cfg.train.train_dir}]})
+        outs = [json.loads(r[0]["stdout"].strip().splitlines()[-1])
+                for r in res]
+        assert all(o == outs[0] for o in outs) and outs[0]["steps"] == 2
+        one = Trainer(cfg.override({"mesh.data": 1, "mesh.model": 1}),
+                      serve_only=True, device="cpu")
+        assert one.evaluate() == pytest.approx(outs[0]["recall_at_k"],
+                                               abs=1e-6)
 
 
 def test_latents_match_arec():

@@ -199,10 +199,48 @@ def test_plain_versions_match_pallas_at_tile_edges(n, s, d, weightless, aug):
                                    err_msg=k, **GRAD)
 
 
-def test_loss_under_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.sampled_softmax_loss(torch.zeros(2, D), torch.zeros(2), None,
-                                None, S, V, mesh=object())
+def test_loss_under_a_mesh_raises(tmp_path):
+    """`sampled_softmax_loss(mesh=)`, which raised until mesh training
+    was ported, now runs: on a 2 x 2 mesh of gloo ranks, each rank its
+    slab of the rows, the fused path (the sharded fused CE) and the pure
+    path (the slabs' weighted means summed over "data") give arec's loss
+    on the whole batch, and the gradients of q and of the candidates'
+    table summed over the ranks give arec's."""
+    from torch_mesh_worker import run_ranks
+
+    rng = np.random.default_rng(17)
+    n = 40
+    q = rng.standard_normal((n, D)).astype(np.float32)
+    true_ids = rng.integers(0, V, n).astype(np.int32)
+    sampled_ids = np.concatenate([true_ids[:8], rng.integers(0, V, S - 8)]
+                                 ).astype(np.int32)
+    w = rng.integers(0, 2, n).astype(np.float32)
+    table, bias = _embed_tables(18)
+    taug = np.concatenate([table, bias[:, None]], axis=1)
+    jp = js.log_uniform_prob(jnp.asarray(sampled_ids), V)
+
+    def jloss(q, taug):
+        return jl.sampled_softmax_loss(
+            q, jnp.asarray(true_ids),
+            lambda i: (taug[i, :D], taug[i, D]), None, S, V,
+            weights=jnp.asarray(w), compute_dtype=jnp.float32,
+            sampled=(jnp.asarray(sampled_ids), jp), use_kernel=False)
+
+    want = jloss(jnp.asarray(q), jnp.asarray(taug))
+    want_g = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(q),
+                                             jnp.asarray(taug))
+    inputs = dict(q=q, true_ids=true_ids, weights=w, taug=taug,
+                  sampled_ids=sampled_ids, p=np.asarray(jp))
+    cases = [dict(mesh=(2, 2), inputs=inputs, S=S, V=V, dist="log_uniform",
+                  use_kernel=k) for k in (True, False)]
+    res = run_ranks("ce_loss_mesh", 4, tmp_path, {"cases": cases})
+    for i, c in enumerate(cases):
+        for r in res:
+            np.testing.assert_allclose(r[i]["loss"], float(want), **VAL)
+        got_q = np.concatenate([res[0][i]["q"], res[2][i]["q"]])
+        np.testing.assert_allclose(got_q, np.asarray(want_g[0]), **GRAD)
+        np.testing.assert_allclose(res[0][i]["taug"], np.asarray(want_g[1]),
+                                   **GRAD)
 
 
 def test_full_softmax_loss_matches_arec():

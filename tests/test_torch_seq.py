@@ -128,19 +128,43 @@ def test_segmented_state_equals_unsegmented():
 @pytest.mark.parametrize("mesh_data", [1, 2])
 def test_spec_refuses_a_device_mesh(mesh_data, tmp_path):
     """`SeqSpec.from_config` builds on a mesh that spans more than one
-    device (mesh.data = 2), as on the 1 x 1 config: the port serves and
-    evaluates on a mesh; training on it still raises NotImplementedError
-    naming ROADMAP A7.3."""
+    device (mesh.data = 2), as on the 1 x 1 config; and training on that
+    mesh, refused until mesh training was ported, now runs: `cli.main`
+    trains syn_lstm.json at a tiny size on 2 gloo ranks (the dense mesh
+    step, the scan on each rank's slab), both print the same summary, and
+    a one-device Trainer restores the checkpoint and evaluates to its
+    recall."""
+    config = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "syn_lstm.json")
     cfg = load_config(parse_args([
-        "--config", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "configs", "syn_lstm.json"),
-        "--set", f"mesh.data={mesh_data}",
+        "--config", config, "--set", f"mesh.data={mesh_data}",
         "--set", f"data.data_dir={tmp_path}"]))
     tds = tgenerate(DATA)
     spec = tseq.SeqSpec.from_config(cfg, tds.user_schema, tds.item_schema)
     assert spec.dim == 64
     if mesh_data > 1:
+        import json
+        from arec_torch.data.io import load_or_prepare
         from arec_torch.train.loop import Trainer
-        with pytest.raises(NotImplementedError, match="A7.3"):
-            Trainer(cfg, device="cpu").train()
-        assert not os.listdir(tmp_path)         # refused before any prep
+        from torch_mesh_worker import run_ranks
+        sets = {"mesh.data": mesh_data, "data.data_dir": tmp_path,
+                "data.syn_users": 120, "data.syn_items": 90,
+                "data.syn_interactions": 2400, "model.dim": 8,
+                "model.max_seq_len": 6, "train.batch_size": 16,
+                "train.num_sampled": 16, "train.max_steps": 2,
+                "train.eval_batch_size": 32,
+                "train.train_dir": tmp_path / "t"}
+        argv = ["--config", config] + [a for k, v in sets.items()
+                                       for a in ("--set", f"{k}={v}")]
+        cfg = load_config(parse_args(argv))
+        load_or_prepare(cfg.data)
+        res = run_ranks("train", mesh_data, tmp_path, {"cases": [{
+            "argv": argv, "train_dir": cfg.train.train_dir}]})
+        outs = [json.loads(r[0]["stdout"].strip().splitlines()[-1])
+                for r in res]
+        assert outs[0] == outs[1] and outs[0]["steps"] == 2
+        one = Trainer(cfg.override({"mesh.data": 1}), serve_only=True,
+                      device="cpu")
+        assert int(one.state.step) == 2
+        assert one.evaluate() == pytest.approx(outs[0]["recall_at_k"],
+                                               abs=1e-6)

@@ -276,11 +276,12 @@ def test_recommender_refuses_a_device_mesh(tmp_path, config, mesh_data):
     """`Recommender` serves on a mesh that spans more than one device
     (syn_lstm.json with mesh.data = 2 on 2 gloo ranks; syn_sharded.json's
     MF on 2 x 4, 8 ranks), each rank answering the whole request list, as
-    on the 1 x 1 config; training on the mesh still raises
-    NotImplementedError naming ROADMAP A7.3."""
+    on the 1 x 1 config; and training on the mesh, refused until mesh
+    training was ported, now runs in the same group first: 2 steps, the
+    same summary on every rank, a checkpoint at step 2."""
     from arec_torch import bridge
     from arec_torch.models.mf import MFSpec, init_mf
-    from arec_torch.train.loop import Trainer
+    from arec_torch.train.checkpoint import Checkpointer
     from torch_mesh_worker import run_ranks
 
     cfg = load_config(parse_args([
@@ -303,13 +304,20 @@ def test_recommender_refuses_a_device_mesh(tmp_path, config, mesh_data):
         rec = tserve.Recommender(cfg, params, serve_batch=4, device="cpu")
         ids = [rec.from_histories(req["histories"])]
     else:
-        with pytest.raises(NotImplementedError, match="A7.3"):
-            Trainer(cfg, device="cpu").train()
-        res = run_ranks("recommend", world, tmp_path, {"cases": [{
-            "config": cfg.to_json(), "params": bridge.to_numpy(params),
-            "serve_batch": 4, "family": cfg.model.model,
-            "out_dir": str(tmp_path), **req}]})
-        ids = [r[0]["ids"] for r in res]
+        tcfg = cfg.override({"train.max_steps": 2,
+                             "train.train_dir": str(tmp_path / "t")})
+        res = run_ranks("chain", world, tmp_path, {"cases": [
+            ("train", {"cases": [{"config": tcfg.to_json(),
+                                  "train_dir": tcfg.train.train_dir}]}),
+            ("recommend", {"cases": [{
+                "config": cfg.to_json(), "params": bridge.to_numpy(params),
+                "serve_batch": 4, "family": cfg.model.model,
+                "out_dir": str(tmp_path), **req}]})]})
+        trained = [r[0][0]["summary"] for r in res]
+        assert all(t == trained[0] for t in trained)
+        assert trained[0]["steps"] == 2
+        assert Checkpointer(tcfg.train.train_dir).latest_step() == 2
+        ids = [r[1][0]["ids"] for r in res]
     for got in ids:
         assert got.shape == (2, cfg.train.eval_topk)
         np.testing.assert_array_equal(got, ids[0])

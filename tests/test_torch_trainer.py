@@ -183,11 +183,37 @@ def test_refused_knobs(tmp_path, train, err, match):
 
 @pytest.mark.parametrize("model", ["mf", "lstm"])
 def test_refuses_a_device_mesh(tmp_path, model):
-    cfg = _tiny(tmp_path)
-    cfg = cfg.replace(model=ModelConfig(model=model, dim=8),
+    """Training on a 2 x 4 mesh, refused until mesh training was ported,
+    now runs: `Trainer(cfg).train()` on 8 gloo ranks takes the same steps,
+    evaluates and saves on the same cadence as on one device (the
+    metrics' and the checkpoints' steps), every rank returns the same
+    summary, and a one-device Trainer restores the mesh's checkpoint and
+    evaluates to its recall."""
+    from arec_torch.data.io import load_or_prepare
+    from torch_mesh_worker import run_ranks
+
+    # bf16: the one-device top-k rounds its operands to bf16, the mesh's
+    # runs in the compute dtype; in bf16 the two score alike
+    cfg = _tiny(tmp_path, max_steps=6, steps_per_checkpoint=2,
+                save_every_evals=2).override(
+        {"train.compute_dtype": "bfloat16"})
+    cfg = cfg.replace(model=ModelConfig(model=model, dim=8, max_seq_len=6),
                       mesh=MeshConfig(data=2, model=4))
-    with pytest.raises(NotImplementedError, match="A7"):
-        Trainer(cfg, device="cpu")
+    load_or_prepare(cfg.data)
+    res = run_ranks("train", 8, tmp_path, {"cases": [{
+        "config": cfg.to_json(), "train_dir": cfg.train.train_dir}]})
+    outs = [r[0] for r in res]
+    assert all(o["summary"] == outs[0]["summary"] for o in outs)
+    assert outs[0]["summary"]["steps"] == 6
+    # three evals and the final record; saves at every second eval and
+    # the end (as on one device)
+    assert _metric_steps(cfg.train.train_dir) == [2, 4, 6, 6]
+    assert _ckpt_steps(cfg.train.train_dir) == [4, 6]
+    one = Trainer(cfg.replace(mesh=MeshConfig()), serve_only=True,
+                  device="cpu")
+    assert int(one.state.step) == 6
+    assert one.evaluate() == pytest.approx(
+        outs[0]["summary"]["recall_at_k"], abs=1e-6)
 
 
 def test_serve_only_trainer_allocates_nothing_and_cannot_train(tmp_path):

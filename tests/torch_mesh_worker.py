@@ -11,6 +11,7 @@ process.
 
 from __future__ import annotations
 
+import datetime
 import io
 import os
 import sys
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from torch_mesh_train_cases import TRAIN_CASES
 
 
 def run_ranks(case: str, world: int, tmp_dir, inputs: dict) -> list:
@@ -32,9 +35,12 @@ def run_ranks(case: str, world: int, tmp_dir, inputs: dict) -> list:
 
 def _rank_main(rank, world, case, src, tmp_dir):
     torch.set_num_threads(1)
+    # a collective that one rank misses fails the case after the timeout
+    # instead of hanging the suite
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(tmp_dir, case)}.store",
-        rank=rank, world_size=world)
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
     try:
         out = CASES[case](torch.load(src, weights_only=False))
         torch.save(out, os.path.join(tmp_dir, f"{case}.out.{rank}.pt"))
@@ -213,5 +219,12 @@ def gloo_cuda(inp):
             "device": a2a.device.type}
 
 
+def chain(inp):
+    """Several cases in one group, in order: inp["cases"] is a list of
+    (case name, its input); returns their results."""
+    return [CASES[name](sub) for name, sub in inp["cases"]]
+
+
 CASES = {"lookups": lookups, "topk": topk, "recommend": recommend,
-         "serve_main": serve_main, "gloo_cuda": gloo_cuda}
+         "serve_main": serve_main, "gloo_cuda": gloo_cuda, "chain": chain}
+CASES.update(TRAIN_CASES)
