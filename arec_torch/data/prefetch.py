@@ -17,7 +17,10 @@ transfer of the next batch overlaps the current step's compute, as arec's
 
 A plain `.to(device)` from pageable memory would instead wait for every
 step already queued on the stream before it copies. On the CPU the batch
-becomes tensors with `torch.from_numpy`.
+becomes tensors with `torch.from_numpy`. A K-step dispatch (arec's
+`_stage_stacked`) takes K of these staged batches and stacks them into
+its CUDA graph's static inputs with a device copy on the consumer's
+stream (`train.graph.scan_multi`), so no pageable copy enters it.
 
 Unlike arec's, the worker's error is raised in the consumer (arec ends the
 epoch early and silently), and closing the generator stops the worker.

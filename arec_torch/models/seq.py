@@ -331,7 +331,10 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
     segment runs under torch.utils.checkpoint, so its scan residuals are
     recomputed in the backward instead of kept. Each segment's dropout
     seed is drawn before the checkpointed call and its generators are
-    built inside it, so the recompute redraws the same masks."""
+    built inside it, so the recompute redraws the same masks; no draw
+    comes from the global RNG, so its state is not saved and restored
+    (`preserve_rng_state=False`, which also keeps the call inside a CUDA
+    graph capture free of RNG-state reads)."""
     dev = batch["inputs"].device
     lk = lookup_fns or {}
     g_drop, g_neg = split(gen, dev)
@@ -351,7 +354,8 @@ def seq_loss(params, spec: SeqSpec, item_dev, user_dev, batch,
             seg["inputs"] = batch["inputs"][:, s * L:(s + 1) * L]
             seg["mask"] = batch["mask"][:, s * L:(s + 1) * L]
             seed = fold_in(g_drop, s).initial_seed()
-            h_s, st = checkpoint(seg_fn, st, seg, seed, use_reentrant=False)
+            h_s, st = checkpoint(seg_fn, st, seg, seed, use_reentrant=False,
+                                 preserve_rng_state=False)
             hs.append(h_s)
         h, new_states = torch.cat(hs, dim=0 if time_major else 1), st
     else:

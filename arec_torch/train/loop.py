@@ -16,15 +16,28 @@ function of (seed, epoch); a checkpoint records the step within the epoch
 state (the previous window's mean loss and the open loss window).
 
 The losses stay on the device: a step's loss joins the window as a 0-d
-tensor, and the window is stacked and read back only at the eval cadence
-(one host sync per `steps_per_checkpoint` steps, not one per step).
+tensor (from a K-step dispatch, a row of its cloned [K] metrics, never the
+graph's own output buffer), and the window is stacked and read back only
+at the eval cadence (one host sync per `steps_per_checkpoint` steps, not
+one per step). A checkpoint's host snapshot is a synchronous copy that
+`Checkpointer.save` finishes before it returns, so the next replay cannot
+write the parameters under it.
 
 Config knobs arec's Trainer reads, each honoured or refused:
 
-  steps_per_dispatch = K  runs as K single steps: arec's K-step `lax.scan`
-                          is step-for-step equal to them (its CUDA-graph
-                          counterpart is ROADMAP B9); arec's
-                          `steps_per_checkpoint % K` error is kept.
+  steps_per_dispatch = K  on one device, K steps per dispatch as arec's
+                          K-step `lax.scan`: `make_multi_step` /
+                          `make_sparse_multi_step`, one CUDA graph replay
+                          on the card (`train/graph.py`), dispatched only
+                          from a K-aligned global step with room for K
+                          before max_steps; the rest (a resume off the
+                          K grid, an epoch's last partial group, the
+                          steps past the last full group before
+                          max_steps) are single steps, as arec fills in.
+                          On a mesh K single steps: gloo's collectives
+                          cannot be captured, and a multi-rank NCCL
+                          capture needs cards to test it on (ROADMAP).
+                          arec's `steps_per_checkpoint % K` error is kept.
   compact_table_grads     served by `engine.dense_lookup`, whose
                           `embedding` backward already groups duplicate
                           ids (the engine docstring).
@@ -98,8 +111,8 @@ from arec_torch.train.evalu import recall_hits, topk_with_mask
 from arec_torch.train.metrics import MetricLogger
 from arec_torch.train.profile import StepProfiler
 from arec_torch.train.step import (
-    TrainState, decay_lr, init_state, make_mesh_step_core, make_optimizer,
-    make_train_step, step_generator,
+    TrainState, decay_lr, init_state, make_mesh_step_core, make_multi_step,
+    make_optimizer, make_train_step, step_generator,
 )
 
 
@@ -409,12 +422,15 @@ class Trainer:
         del shapes
 
         self.dispatch_k = t.steps_per_dispatch
-        if self.dispatch_k > 1 and not serve_only and (
-                t.steps_per_checkpoint % self.dispatch_k):
-            raise ValueError(
-                "steps_per_checkpoint must be a multiple of "
-                f"steps_per_dispatch ({t.steps_per_checkpoint} % "
-                f"{self.dispatch_k})")
+        self.multi_step_fn = None
+        if self.dispatch_k > 1 and not serve_only:
+            if t.steps_per_checkpoint % self.dispatch_k:
+                raise ValueError(
+                    "steps_per_checkpoint must be a multiple of "
+                    f"steps_per_dispatch ({t.steps_per_checkpoint} % "
+                    f"{self.dispatch_k})")
+            if self.sh is None:
+                self.multi_step_fn = self._make_multi_step()
 
         self.ckpt = Checkpointer(t.train_dir, async_save=t.async_ckpt)
         self.metrics = MetricLogger(t.train_dir, tensorboard=t.tensorboard,
@@ -451,6 +467,18 @@ class Trainer:
             return make_mesh_step_core(
                 self._loss_fn(), self.opt, t.learning_rate, self.sh.mesh)
         return make_train_step(self._loss_fn(), self.opt, t.learning_rate)
+
+    def _make_multi_step(self):
+        """K steps per dispatch on one device (arec's `loop.py:301-325`);
+        on a mesh the Trainer takes K single steps."""
+        t = self.cfg.train
+        if self.sparse:
+            return sparse_mod.make_sparse_multi_step(
+                self.is_seq, self.spec, self.user_dev, self.item_dev,
+                self.opt, t.learning_rate, t.optimizer, pop=self.pop,
+                k=self.dispatch_k)
+        return make_multi_step(self._loss_fn(), self.opt, t.learning_rate,
+                               self.dispatch_k)
 
     def _loss_fn(self):
         """The dense step's loss: on one device through `dense_lookup`,
@@ -731,9 +759,26 @@ class Trainer:
                         pos, prev_loss, window, best_recall))
             return bool(t.max_steps and steps_done >= t.max_steps)
 
+        def single(tb) -> bool:
+            profiler.on_step(steps_done)
+            self.state, m = self.step_fn(
+                self.state, tb, step_generator(t.seed, steps_done))
+            return after_step(m["loss"], m["lr"])
+
+        def multi(pending) -> bool:
+            profiler.on_step(steps_done, K)
+            self.state, ms = self.multi_step_fn(
+                self.state, pending,
+                [step_generator(t.seed, steps_done + i) for i in range(K)])
+            for i in range(K):
+                if after_step(ms["loss"][i], ms["lr"][i]):
+                    return True
+            return False
+
         # unlike arec, a run restored at max_steps takes no further step
         stop = bool(t.max_steps and steps_done >= t.max_steps)
-        depth = max(2, self.dispatch_k + 1)
+        K = self.dispatch_k
+        depth = max(2, K + 1)
         stage = to_device(self.device, depth)   # one pinned ring per run
         for epoch in range(self.start_epoch, t.n_epoch):
             if stop:
@@ -746,13 +791,28 @@ class Trainer:
                 skip = 0
             with contextlib.closing(prefetch(batches, depth=depth,
                                              transform=stage)) as it:
+                pending = []
                 for tb in it:
-                    profiler.on_step(steps_done)
-                    self.state, m = self.step_fn(
-                        self.state, tb, step_generator(t.seed, steps_done))
-                    stop = after_step(m["loss"], m["lr"])
+                    pending.append(tb)
+                    # K steps at once only from a K-aligned global step
+                    # with room for K (arec's `loop.py:869-898`); single
+                    # steps fill in around them
+                    room = t.max_steps - steps_done if t.max_steps else K
+                    if (self.multi_step_fn is not None
+                            and steps_done % K == 0 and room >= K):
+                        if len(pending) < K:
+                            continue
+                        stop = multi(pending)
+                        pending = []
+                    else:
+                        stop = single(pending.pop(0))
                     if stop:
                         break
+                # the epoch's tail: fewer than K batches held
+                for tb in pending:
+                    if stop:
+                        break
+                    stop = single(tb)
         profiler.close()
         self.ckpt.drain()   # async saves: publish before the step check
         if steps_done and self.latest_step() != steps_done:

@@ -27,11 +27,13 @@ initial accumulator 0.1 and eps 1e-7), except that the touched-rows
 Adagrad divides by √a + eps where the dense path multiplies by
 rsqrt(a + eps) — each path keeps arec's own formula.
 
-As in the dense port, the tables and the other parameters are updated in
-place: the state passed to a step is consumed by it. arec's
-`make_sparse_multi_step` (K steps in one `lax.scan`) is not ported: the
-port's Trainer runs `steps_per_dispatch` as K single steps. The mesh
-variant is `train/sparse_mesh.py`.
+As in the dense port, every leaf of the state (tables, the other
+parameters, their optimizer state, `step`) is updated in place: the state
+passed to a step is consumed by it. `make_sparse_multi_step` runs K steps
+per dispatch, one CUDA graph replay on the card (`train/graph.py`); the
+step's shapes are static (`unique_rows`' sentinel padding, the row
+scatter dropping ids >= V on the card), so nothing in it reads the card
+from the host. The mesh variant is `train/sparse_mesh.py`.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from arec_torch.tables.engine import (
     make_subset_lookup, subset_pos_map, unique_rows,
 )
 from arec_torch.train.step import (
-    Optimizer, TrainState, _leaves, _rebuild, check_tf32,
+    Optimizer, TrainState, _leaves, _next, _rebuild, check_tf32,
 )
 
 ADAGRAD_INIT_ACCUM = 0.1   # optax.adagrad defaults, as the dense path
@@ -124,12 +126,13 @@ def _apply_packed_adagrad(packed, sub_packed, g_sub, uids, prefix, lr):
 
 @torch.no_grad()
 def _apply_sgd(table, g_sub, uids, prefix, lr):
-    """table[idx] -= lr·g in place, out-of-range idx dropped (its boolean
-    mask syncs with the host; this path is not the packed Adagrad one)."""
+    """table[idx] -= lr·g in place, out-of-range idx dropped: they add an
+    exact 0 to the last row, so no boolean mask syncs with the host."""
     idx = _row_indices(uids, prefix)
     if idx.shape[0]:
         ok = idx < table.shape[0]
-        table.index_add_(0, idx[ok].long(), (-lr * g_sub)[ok])
+        table.index_add_(0, idx.long().clamp(max=table.shape[0] - 1),
+                         torch.where(ok[:, None], -lr * g_sub, 0.0))
     return table
 
 
@@ -373,9 +376,10 @@ def make_sparse_step_core(is_seq: bool, spec, user_dev, item_dev,
                                        s.prefix, lr)
                 new_params = set_path(new_params, s.path, table)
 
-        new_state = TrainState(params=new_params,
-                               opt_state={"rest": rest_state},
-                               lr_scale=state.lr_scale, step=state.step + 1)
+        new_state = _next(TrainState(params=new_params,
+                                     opt_state={"rest": rest_state},
+                                     lr_scale=state.lr_scale,
+                                     step=state.step))
         return new_state, {"loss": loss.detach(), "lr": lr}
 
     return step
@@ -385,3 +389,11 @@ def make_sparse_train_step(*args, **kwargs) -> Callable:
     """The single sparse step (see make_sparse_step_core); it consumes the
     state it is given (in-place updates, as arec donates it)."""
     return make_sparse_step_core(*args, **kwargs)
+
+
+def make_sparse_multi_step(*args, k: int, **kwargs) -> Callable:
+    """K sparse steps per dispatch (arec's `make_sparse_multi_step`): the
+    sparse core under `train.graph.scan_multi`, step for step identical to
+    K single sparse steps (same keys, same touched-row updates)."""
+    from arec_torch.train.graph import scan_multi
+    return scan_multi(make_sparse_step_core(*args, **kwargs), k)

@@ -63,7 +63,7 @@ from arec_torch.train.sparse import (
     _adagrad_rows, check_sparse_loss, get_path, set_path,
     subset_loss_and_grads, table_paths, touched_rows,
 )
-from arec_torch.train.step import Optimizer, TrainState, check_tf32
+from arec_torch.train.step import Optimizer, TrainState, _next, check_tf32
 
 
 def _stored_ids(uids_nat, total_rows: int, vp: int, perm: RowPerm | None):
@@ -237,9 +237,9 @@ def make_sparse_mesh_step_core(mesh, is_seq: bool, spec, user_dev, item_dev,
                 g_subs[s.role] * scale, lr, optimizer, mesh)
             new_params = set_path(new_params, s.path, table)
 
-        return (TrainState(params=new_params,
-                           opt_state={"rest": rest_state},
-                           lr_scale=state.lr_scale, step=state.step + 1),
+        return (_next(TrainState(params=new_params,
+                                 opt_state={"rest": rest_state},
+                                 lr_scale=state.lr_scale, step=state.step)),
                 {"loss": loss_sum, "lr": lr})
 
     return step

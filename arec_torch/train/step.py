@@ -17,12 +17,14 @@ in the optimizer state, set each step to base_lr · lr_scale):
   adam     m ← 0.9m + 0.1g; v ← 0.999v + 0.001g²; t ← t + 1;
            update = −lr · (m / (1 − 0.9ᵗ)) / (√(v / (1 − 0.999ᵗ)) + 1e-8)
 
-Where arec donates the state to its jitted step, the port updates the
-parameter and optimizer tensors in place: the state passed to a step is
-consumed by it. arec's `steps_per_dispatch` (K steps in one `lax.scan`,
-which amortises dispatch over a remote TPU and is step-for-step identical
-to K single steps) runs as K single steps in the port's Trainer
-(`arec_torch.train.loop`).
+Where arec donates the state to its jitted step, the port updates every
+leaf of the state in place (the parameters, the optimizer state with its
+learning rate, `step` and, in `decay_lr`, `lr_scale`): the state passed to
+a step is consumed by it, and its tensors keep their addresses, which a
+CUDA graph of K steps relies on. arec's `steps_per_dispatch` (K steps in
+one `lax.scan`, step for step identical to K single steps) is
+`make_multi_step`: one CUDA graph replay for K steps on the card
+(`arec_torch.train.graph`), K single steps on the CPU.
 
 A step's `gen` is its key (see arec_torch.rng): callers make it a pure
 function of (seed + 777, global step) with `step_generator`, as arec's
@@ -101,7 +103,7 @@ def make_optimizer(name: str, learning_rate: float) -> Optimizer:
 
     @torch.no_grad()
     def update(grads: list, state: dict, params: list, lr: torch.Tensor):
-        state["learning_rate"] = lr
+        state["learning_rate"].copy_(lr)
         state["count"] += 1
         if name == "adam":
             state["adam_count"] += 1
@@ -158,6 +160,13 @@ def _loss_and_grads(loss_fn: Callable, state: TrainState, batch, gen):
                           else torch.zeros_like(p) for p in live]
 
 
+@torch.no_grad()
+def _next(state: TrainState) -> TrainState:
+    """The state after a step: its `step` counted up in place."""
+    state.step.add_(1)
+    return state
+
+
 def make_step_core(loss_fn: Callable, opt: Optimizer,
                    base_lr: float) -> Callable:
     """loss_fn(params, batch, gen) -> 0-d loss; returns
@@ -172,8 +181,7 @@ def make_step_core(loss_fn: Callable, opt: Optimizer,
         metrics = {"loss": loss.detach(), "lr": lr,
                    "grad_norm": torch.sqrt(sum((g.float() * g.float()).sum()
                                                for g in grads))}
-        return (TrainState(state.params, state.opt_state, state.lr_scale,
-                           state.step + 1), metrics)
+        return _next(state), metrics
 
     return step
 
@@ -228,9 +236,7 @@ def make_mesh_step_core(loss_fn: Callable, opt: Optimizer, base_lr: float,
                                                      group=data_group)
         lr = base_lr * state.lr_scale
         opt.update(grads, state.opt_state, leaves, lr)
-        return (TrainState(state.params, state.opt_state, state.lr_scale,
-                           state.step + 1),
-                {"loss": loss.detach(), "lr": lr})
+        return _next(state), {"loss": loss.detach(), "lr": lr}
 
     return step
 
@@ -242,8 +248,24 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     return make_step_core(loss_fn, opt, base_lr)
 
 
+def make_multi_step(loss_fn: Callable, opt: Optimizer, base_lr: float,
+                    k: int) -> Callable:
+    """K optimizer steps per dispatch (arec's `make_multi_step`):
+    multi(state, batches, gens) over K batches and the K steps' keys,
+    metrics as [K] tensors; step for step identical to K calls of
+    `make_train_step` (same key per global step, same update order). One
+    CUDA graph replay on the card (`arec_torch.train.graph`); K single
+    steps on the CPU."""
+    from arec_torch.train.graph import scan_multi
+    return scan_multi(make_step_core(loss_fn, opt, base_lr), k)
+
+
+@torch.no_grad()
 def decay_lr(state: TrainState, factor: float) -> TrainState:
-    return state._replace(lr_scale=state.lr_scale * factor)
+    """lr_scale *= factor, in place (a captured K-step graph reads the
+    same tensor); returns the state."""
+    state.lr_scale.mul_(factor)
+    return state
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

@@ -47,7 +47,28 @@
    step; checks one sparse step against one dense step from the same
    state, and that step's write-back, kernel against plain version, bit
    for bit; then Recall@30.
-7. The main path as its users run it, on a temporary train_dir under
+7. K steps per dispatch, one CUDA graph replay for K = 8 steps
+   (`arec_torch.train.graph`, the configs' steps_per_dispatch), at full
+   width: c4's LSTM dense step (B1's training launch, B2, B5, B6) and the
+   MF sparse step (B5, B6, B7), each after one eager step under
+   `torch.cuda.set_sync_debug_mode("error")`: from one seeded state, 24
+   eager steps twice (A) against 8 eager warm-up steps, the capture and
+   two replays (B), every state leaf and each step's loss, lr and
+   grad_norm bit-equal to A or within A's own run-to-run gap (printed);
+   a `decay_lr` and one more replay, held the same way; the wrappers'
+   launch counts over B (the warm-up's and the capture's; a replay runs
+   no wrapper) and the three replays' kernel launches, counted by symbol
+   in a profiler trace of them; eager and graph
+   ms a step over 5 K-step runs each, device busy, idle share and device
+   activities a step of each (profiler), the capture's wall, peak memory
+   with the graph's pool. A small c4 with keep_prob 0.8 at K = 2: replays
+   equal to eager steps, and the dropout masks of two replays differ.
+   The Trainer runs of 8 and 11 go through the graph too (their configs'
+   steps_per_dispatch is 8): the resumed MF run must be bit-equal to the
+   straight one, and the first MF run's own AREC_PROFILE_DIR trace (the
+   default window, steps 10..14) holds its replay of steps 8..15, whose
+   kernel launches are counted by symbol.
+8. The main path as its users run it, on a temporary train_dir under
    _train/ (deleted at the end): syn_xing_full's MF trained through
    `arec_torch.cli.main.main` (the Trainer, async checkpoints of ~2.9 GB
    every 16 steps, steps_per_dispatch 8) to step 32; a second invocation
@@ -84,19 +105,19 @@
    mesh step and the dense mesh step at full width against the one-card
    steps (sparse bit for bit), ms per step beside. Startup, train()
    seconds, peak memory and launches are printed per rank.
-8. The host input path at c4's shape on the twin: `seq_batches` and
+9. The host input path at c4's shape on the twin: `seq_batches` and
    `eval_batches` packed by the C++ packer against the numpy twin (equal
    outputs, ms a batch each); the old pageable `.to()` against the pinned
    copy-stream staging of `to_device` for MF's and c4's batches; how long
    each copy call blocks its thread behind a 10 ms GPU spin; 64 batches
    staged through `prefetch` under a slower consumer, each equal to its
    numpy source.
-9. The approximate top-k at serving width: syn_xing_full's MF
+10. The approximate top-k at serving width: syn_xing_full's MF
    `for_users` (256 users, V = 1,304,126) and c4's LSTM batch, each with
    serve_recall_target 1.0 and 0.95: batch latency, device busy, the
    reduction's (R, l) and the top-30 overlap with the exact lists (MF:
    at least 0.90); no seen id served.
-10. The real configurations from raw dumps written in the published
+11. The real configurations from raw dumps written in the published
    layouts under _data/ (deleted at the end): a RecSys'17 XING dump
    (1,304,126 items) prepared into configs/c4_lstm_attr_xing.json's
    dataset (V 50,000 after truncation) and c4 trained 16 steps through
@@ -104,7 +125,7 @@
    requests served with serve_recall_target 1.0 and 0.95; an ML-1M
    GroupLens dump at the published counts prepared, c2 trained 16 steps
    and 256 users served.
-11. Prints one `{"kernels": [...]}` JSON line and, last, the
+12. Prints one `{"kernels": [...]}` JSON line and, last, the
    `{"ok": true, "device": {...}}` line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -926,24 +947,72 @@ def load_c4(twin, cuts, cell="lstm"):
                      "data.data_dir": DATA_DIR, "model.cell": cell})
 
 
-def device_breakdown(what, fn):
-    """Run fn() once under torch.profiler and print device busy time, the
-    idle share of the wall time and the top kernels by device time;
-    returns (busy ms, wall ms)."""
+# {kernel name (its wrapper's counter): the symbol of the one device kernel
+# that each call of the wrapper launches}; a profiler trace's kernel events
+# are counted by it (a CUDA graph replay runs no wrapper, so its launches
+# are counted only there)
+KERNEL_SYMBOLS = {
+    "lstm_scan_fwd": r"\blstm_(fwd_mma(_reg)?|scan_fwd)_kernel\b",
+    "lstm_scan_bwd": r"\blstm_(sweep(_reg)?|scan_bwd)_kernel\b",
+    "gru_scan_fwd": r"\bgru_(fwd_mma(_reg)?|scan_fwd)_kernel\b",
+    "gru_scan_bwd": r"\bgru_(sweep(_reg)?|scan_bwd)_kernel\b",
+    "sampled_ce_fwd": r"\bsampled_ce_fwd_(mma_)?kernel\b",
+    "sampled_ce_bwd": r"\bsampled_ce_bwd_cols_(mma_)?kernel\b",
+    "row_scatter": r"::scatter<",
+}
+
+
+def kernel_counts(events):
+    """{kernel name: device launches} over (symbol, count) pairs of a
+    profiler's kernel events, by KERNEL_SYMBOLS."""
+    import re
+    out = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for symbol, n in events:
+        for name, pat in KERNEL_SYMBOLS.items():
+            if re.search(pat, symbol):
+                out[name] += n
+    return out
+
+
+def trace_kernel_counts(path):
+    """kernel_counts of a Chrome trace JSON written by torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return kernel_counts((e.get("name", ""), 1) for e in events
+                         if e.get("cat", "").lower() == "kernel")
+
+
+def traced(fn):
+    """fn() under torch.profiler (host and device); returns (its result,
+    the profiler's device events as {key: (count, self device us)}, the
+    wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}     # kernels, not aten ops
+    dev = {e.key: (e.count, e.self_device_time_total)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0}     # kernels, not aten ops
+    return result, dev, wall_ms
+
+
+def device_breakdown(what, fn):
+    """Run fn() once under torch.profiler and print device busy time, the
+    idle share of the wall time and the top kernels by device time;
+    returns (busy ms, wall ms, the number of device activities: kernels,
+    copies, fills)."""
+    _, dev, wall_ms = traced(fn)
+    dev_us = {key: us for key, (_, us) in dev.items()}
     busy_ms = sum(dev_us.values()) / 1e3
+    count = sum(n for n, _ in dev.values())
     log(f"profile of {what}: device busy {busy_ms:.3f} ms of "
-        f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
+        f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}), "
+        f"{count} device activities")
     ce_ms = sum(us for key, us in dev_us.items() if "sampled_ce" in key) / 1e3
     if ce_ms:
         log(f"  sampled CE kernels (sampled_ce.cu): {ce_ms:.3f} ms, "
@@ -954,7 +1023,7 @@ def device_breakdown(what, fn):
             f"{rs_ms / busy_ms:.4f} of device busy")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, count
 
 
 def scan_counters(cell):
@@ -1810,6 +1879,323 @@ def mf_train_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
     return launches, wb, tc.batch_size * steps / wall_s
 
 
+DISPATCH_K = 8        # steps_per_dispatch of both flagship configs
+DISPATCH_REPS = 5     # replays (and K-step eager runs) timed
+SMALL_C4 = {"data.syn_items": 20_000, "data.syn_users": 4_000,
+            "data.syn_interactions": 80_000, "model.keep_prob": 0.8}
+
+
+def run_gap(a, b):
+    """Largest |a - b| over two runs' state leaves and [steps] metrics."""
+    from arec_torch.train.step import _leaves
+    (sa, ma), (sb, mb) = a, b
+    pairs = list(zip(_leaves(sa._asdict()), _leaves(sb._asdict())))
+    pairs += [(ma[k], mb[k]) for k in ma]
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in pairs if x.numel())
+
+
+def dispatch_check(what, dev, state, core, batches, k, decay, expect,
+                   reps=DISPATCH_REPS):
+    """One step core at K steps per dispatch against its eager steps, from
+    one seeded state (cloned three times): path A, 3K eager steps, twice;
+    path B (`train.graph.scan_multi`), the first dispatch's K eager
+    warm-up steps and its capture, then two replays; every state leaf and
+    each step's metrics of B bit-equal to A, or no further from A than A's
+    two runs are from each other (printed beside). Then `decay_lr` on each
+    and K more steps (B: one replay), held the same way, with the lr of
+    that replay checked. Over B the wrappers' counts must be `expect` (per
+    step) times 2K (the warm-up's launches and the capture's, which records
+    them into the graph), and B's three replays run under torch.profiler:
+    their kernel events, counted by symbol, must be `expect` times 3K. Then
+    eager and graph ms a step over `reps` dispatches each, device busy,
+    idle share and kernels a step of one eager K-step run and one replay,
+    the capture's wall and each path's peak memory above the state.
+    Returns ({kernel: wrapper count over B}, {kernel: device launches of
+    B's replays}, the numbers)."""
+    import torch
+    from arec_torch.train.graph import scan_multi
+    from arec_torch.train.step import decay_lr, step_generator, tree_map
+
+    def clone(st):
+        return type(st)(*(tree_map(torch.clone, x) for x in st))
+
+    def keys(lo, hi):
+        return [step_generator(0, i) for i in range(lo, hi)]
+
+    def eager(st, lo, hi):
+        ms = []
+        for i in range(lo, hi):
+            st, m = core(st, batches[i % len(batches)], step_generator(0, i))
+            ms.append(m)
+        return st, {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
+
+    multi = scan_multi(core, k)
+
+    def graphed(st, lo, hi):
+        ms = []
+        for d in range(lo, hi, k):
+            st, m = multi(st, [batches[i % len(batches)]
+                               for i in range(d, d + k)], keys(d, d + k))
+            ms.append(m)
+        return st, {key: torch.cat([m[key] for m in ms]) for key in ms[0]}
+
+    def replays(st, lo, hi):
+        """graphed(st, lo, hi) under the profiler: (its result, {kernel:
+        device launches})."""
+        out, dev_events, _ = traced(lambda: graphed(st, lo, hi))
+        return out, kernel_counts(
+            (key, n) for key, (n, _) in dev_events.items())
+
+    a1, a2, b = state, clone(state), clone(state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a1 = eager(a1, 0, 3 * k)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    a2 = eager(a2, 0, 3 * k)
+    counters = all_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():                     # ---- the main path
+        fn.launches = 0
+    t0 = time.perf_counter()
+    b = graphed(b, 0, k)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    b1, replayed = replays(b[0], k, 3 * k)
+    b = (b1[0], {key: torch.cat([b[1][key], b1[1][key]]) for key in b[1]})
+    launches = {n: fn.launches for n, fn in counters.items()}
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    gaps = [(run_gap(a1, b), run_gap(a1, a2))]
+    a1, a2, b = ((decay_lr(x[0], decay), x[1]) for x in (a1, a2, b))
+    a1, a2 = eager(a1[0], 3 * k, 4 * k), eager(a2[0], 3 * k, 4 * k)
+    for fn in counters.values():
+        fn.launches = 0
+    b, more = replays(b[0], 3 * k, 4 * k)
+    for n, fn in counters.items():
+        launches[n] += fn.launches                   # ---- read just after
+        replayed[n] += more[n]
+    gaps.append((run_gap(a1, b), run_gap(a1, a2)))
+    assert (multi.captures, multi.replays) == (1, 3), (multi.captures,
+                                                       multi.replays)
+    want = {n: 2 * k * expect.get(n, 0) for n in counters}
+    assert launches == want, (launches, want)
+    want = {n: 3 * k * expect.get(n, 0) for n in counters}
+    assert replayed == want, (replayed, want)
+    lr = b[1]["lr"].cpu()
+    assert torch.all(lr == lr[0]), lr
+    assert float(a1[1]["lr"][0]) == float(lr[0]), (a1[1]["lr"], lr)
+    for (graph_gap, eager_gap), when in zip(gaps, ("3K", "4K")):
+        assert graph_gap <= eager_gap, (what, when, graph_gap, eager_gap)
+    assert all(torch.isfinite(b[1][m]).all() for m in b[1])
+    log(f"{what} at K={k}: 3K steps eager (A, twice) and as the warm-up, "
+        f"capture and 2 replays (B): graph vs eager max|d| {gaps[0][0]:.3e} "
+        f"(eager vs eager {gaps[0][1]:.3e}); decay_lr({decay}) and one "
+        f"more replay: lr {float(lr[0]):.6g} "
+        f"(eager {float(a1[1]['lr'][0]):.6g}), "
+        f"max|d| {gaps[1][0]:.3e} (eager vs eager {gaps[1][1]:.3e}); "
+        f"first dispatch (K eager steps on a side stream + capture) "
+        f"{first_s:.3f} s, capture {multi.capture_s:.3f} s; wrapper counts "
+        f"over B (K warm-up steps, K captured) "
+        f"{ {n: v for n, v in launches.items() if v} }; kernel events of "
+        f"B's {multi.replays} replays ({multi.replays * k} steps) in the "
+        f"profiler's trace { {n: v for n, v in replayed.items() if v} }")
+    del a1, a2
+    state = b[0]
+
+    # times: eager K-step runs and replays in turns (E, G, G, E)
+    def run_eager(lo):
+        return eager(state, lo, lo + k)
+
+    def run_graph(lo):
+        return multi(state, [batches[i % len(batches)]
+                             for i in range(lo, lo + k)], keys(lo, lo + k))
+
+    walls = {"eager": [], "graph": []}
+    lo = 4 * k
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = run_eager if kind == "eager" else run_graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(lo)
+            lo += k
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) / (reps * k) * 1e3)
+    prof = {}
+    for kind, fn in (("eager", run_eager), ("graph", run_graph)):
+        busy, wall, n = device_breakdown(
+            f"{what}: {k} steps, "
+            f"{'eager' if kind == 'eager' else 'one replay'}",
+            lambda fn=fn, lo=lo: fn(lo))
+        lo += k
+        prof[kind] = {"busy_ms_per_step": busy / k,
+                      "wall_ms_per_step": wall / k,
+                      "idle_share": 1 - busy / wall,
+                      "kernels_per_step": n / k}
+    log(f"{what}: ms a step eager {walls['eager']} vs graph {walls['graph']} "
+        f"({reps} K-step runs each, in turns E G G E); per step eager "
+        f"{prof['eager']} vs graph {prof['graph']}; peak device memory above "
+        f"the three states: eager {eager_peak / 2**30:.3f} GiB, graph (its "
+        f"pool, the warm-up and the replays) {graph_peak / 2**30:.3f} GiB")
+    return launches, replayed, {
+        "k": k, "eager_ms_per_step": walls["eager"],
+        "graph_ms_per_step": walls["graph"], "profile": prof,
+        "capture_s": multi.capture_s, "gap": gaps,
+        "peak_gib_eager": eager_peak / 2**30,
+        "peak_gib_graph": graph_peak / 2**30}
+
+
+def sync_check(what, dev, state, core, batch, gen):
+    """One eager step under `torch.cuda.set_sync_debug_mode("error")`: an
+    op that syncs with the host raises and names itself."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = core(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(m["loss"]))
+    log(f"{what}: one eager step under set_sync_debug_mode('error'): no op "
+        f"synced with the host")
+    return state
+
+
+def dispatch_phase(dev, twin=TWIN, cuts=CUTS, sets=MF_SETS, mf_cuts=MF_CUTS,
+                   k=DISPATCH_K, small=SMALL_C4):
+    """K steps per dispatch (`train.graph`, one CUDA graph replay for K
+    steps) at full width: (i) c4's LSTM dense step (B1's training launch,
+    B2, B5, B6) and (ii) syn_xing_full's MF sparse step (B5, B6, B7), each
+    through `dispatch_check` after one eager step under the sync check;
+    (iii) a small c4 with keep_prob 0.8 at K = 2: replays equal to eager
+    steps, and, with lr 0 and one set of negatives in every step, the
+    dropout masks of the slots and of two replays differ (their losses
+    do). Returns ({kernel: wrapper counts over (i) and (ii)}, {kernel:
+    device launches of their replays, from the profiler}, the numbers)."""
+    import itertools
+
+    import torch
+    import arec_torch.train.sparse as tsparse
+    from arec_torch.data.dataset import mf_batches, seq_batches
+    from arec_torch.kernels import lstm_scan as tk
+    from arec_torch.kernels import row_scatter as trs
+    from arec_torch.models.mf import MFSpec, init_mf
+    from arec_torch.models.seq import SeqSpec, init_seq, seq_loss
+    from arec_torch.tables.engine import attrs_to_device
+    from arec_torch.train.graph import scan_multi
+    from arec_torch.train.step import (init_state, make_optimizer,
+                                       make_step_core, step_generator)
+
+    def on_dev(batch):
+        return {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
+
+    def c4(cfg, ds, lr=None, sampled=None):
+        tc = cfg.train
+        spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+        idev = attrs_to_device(ds.item_attrs.restrict(spec.item_in.schema),
+                               spec.item_in, dev)
+        lr = tc.learning_rate if lr is None else lr
+
+        def loss_fn(p, batch, gen):
+            return seq_loss(p, spec, idev, None, batch, gen, sampled=sampled,
+                            time_major=True)
+        opt = make_optimizer(tc.optimizer, lr)
+        state = init_state(init_seq(torch.Generator(device=dev).manual_seed(0),
+                                    spec), opt)
+        host = list(itertools.islice(
+            seq_batches(ds, tc.batch_size, spec.pack_len, tc.seed, 0),
+            8 * k))
+        return spec, state, make_step_core(loss_fn, opt, lr), host
+
+    out, replayed, numbers = {}, {}, {}
+    scans = {tk.KERNEL: 1, tk.KERNEL_BWD: 1, "sampled_ce_fwd": 1,
+             "sampled_ce_bwd": 1}
+
+    # (i) c4's LSTM, dense step
+    cfg, ds, _ = load_c4(twin, cuts)
+    spec, state, core, host = c4(cfg, ds)
+    assert cfg.train.steps_per_dispatch == k, cfg.train
+    if twin is TWIN:
+        assert (spec.vocab, spec.dim, spec.pack_len, spec.num_sampled) == (
+            twin["data.syn_items"], 128, 50, 1024), spec
+    batches = [on_dev(h) for h in host]
+    state = sync_check("c4 (lstm) dense step", dev, state, core,
+                       on_dev(host[-1]), step_generator(0, 10_000))
+    launches, rep, numbers["c4"] = dispatch_check(
+        "c4 (lstm) dense step", dev, state, core, batches, k,
+        cfg.train.lr_decay, scans)
+    out = launches
+    replayed.update(rep)
+    del state, core, batches
+    free()
+
+    # (ii) syn_xing_full's MF, sparse step
+    cfg, ds, _ = load_mf(sets, mf_cuts)
+    tc = cfg.train
+    mspec = MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    assert (tc.steps_per_dispatch, tc.sparse_update) == (k, True), tc
+    if sets is MF_SETS:
+        assert (tc.batch_size, mspec.num_sampled, mspec.user.dim) == (
+            8192, 2048, 128), tc
+    udev = attrs_to_device(ds.user_attrs.restrict(mspec.user.schema),
+                           mspec.user, dev)
+    idev = attrs_to_device(ds.item_attrs.restrict(mspec.item.schema),
+                           mspec.item, dev)
+    opt = make_optimizer(tc.optimizer, tc.learning_rate)
+    state = tsparse.init_sparse_state(
+        init_mf(torch.Generator(device=dev).manual_seed(0), mspec),
+        tsparse.table_paths(False, mspec), opt, tc.optimizer)
+    core = tsparse.make_sparse_step_core(False, mspec, udev, idev, opt,
+                                         tc.learning_rate, tc.optimizer)
+    host = list(itertools.islice(mf_batches(ds, tc.batch_size, tc.seed, 0),
+                                 8 * k))
+    batches = [on_dev(h) for h in host]
+    state = sync_check("MF sparse step", dev, state, core, batches[-1],
+                       step_generator(0, 10_000))
+    launches, rep, numbers["mf"] = dispatch_check(
+        "MF sparse step", dev, state, core, batches, k, tc.lr_decay,
+        {"sampled_ce_fwd": 1, "sampled_ce_bwd": 1, trs.KERNEL: 2})
+    out = {n: out[n] + launches[n] for n in out}
+    replayed.update({n: replayed.get(n, 0) + v for n, v in rep.items()})
+    del state, core, batches, udev, idev
+    free()
+
+    # (iii) a small c4 with dropout, K = 2
+    cfg, ds, _ = load_c4({**twin, **{kk: v for kk, v in small.items()
+                                     if kk.startswith("data.")}},
+                         {}, "lstm")
+    cfg = cfg.override({kk: v for kk, v in small.items()
+                        if kk.startswith("model.")})
+    spec, state, core, host = c4(cfg, ds)
+    assert spec.keep_prob == 0.8, spec
+    batches = [on_dev(h) for h in host]
+    dispatch_check("small c4 (lstm), keep_prob 0.8", dev, state, core,
+                   batches, 2, cfg.train.lr_decay, scans, reps=1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, spec.vocab, (spec.num_sampled,), generator=g,
+                        device=dev, dtype=torch.int32)
+    fixed = (ids, torch.full((spec.num_sampled,), 1.0 / spec.vocab,
+                             device=dev))
+    _, state, core, _ = c4(cfg, ds, lr=0.0, sampled=fixed)
+    multi = scan_multi(core, 2)
+    losses = []
+    for d in range(3):
+        state, m = multi(state, [batches[0]] * 2, [
+            step_generator(0, 2 * d + i) for i in range(2)])
+        losses.append(m["loss"])
+    seen = torch.cat(losses[1:]).tolist()
+    assert len(set(seen)) == 4, seen
+    log(f"small c4 (lstm), keep_prob 0.8, lr 0, one batch and one set of "
+        f"negatives in every step: the losses of two replays' slots "
+        f"{[f'{x:.6f}' for x in seen]} all differ (new dropout masks each "
+        f"replay)")
+    del state, core, batches
+    return out, replayed, numbers
+
+
 class Tee(io.TextIOBase):
     """A stdout that prints through and keeps a copy (the Trainer's
     `[ckpt]` lines and the CLI's summary are read back from it)."""
@@ -1901,8 +2287,13 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         to the one-card Recommender's up to ties (`mesh_serve`);
     (f) c4's checkpoint of (d) on a 2 x 2 mesh: 4 ranks, 8 requests
         padded to 256, the LSTM forward kernel launched on every rank.
-    Returns ({kernel name: launches} over the Trainer runs, {"mf", "c4":
-    {kernel: launches summed over the mesh ranks}}, the same per rank)."""
+    The Trainers step through the CUDA graph (steps_per_dispatch 8), so the
+    wrappers count the eager warm-up and the capture of each run, and run
+    (a) also writes the Trainer's own trace (AREC_PROFILE_DIR) of its
+    replay of steps 8..15, whose kernel events are counted.
+    Returns ({kernel name: wrapper counts} over the Trainer runs, {"mf",
+    "c4": {kernel: launches summed over the mesh ranks}}, the same per
+    rank, {kernel name: device launches in the trace of (a)})."""
     import itertools
     import shutil
     import tempfile
@@ -1944,10 +2335,26 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
     try:
         # ---- (a) MF through the CLI -------------------------------------
         mf_dir = os.path.join(root, "mf")
+        prof_dir = os.path.join(root, "profile")
+        os.environ["AREC_PROFILE_DIR"] = prof_dir   # steps [10, 15)
         t0 = time.perf_counter()
-        (rc, out), used = counted(cli_main, mf_argv(mf_dir, 32), device=dev)
+        try:
+            (rc, out), used = counted(cli_main, mf_argv(mf_dir, 32),
+                                      device=dev)
+        finally:
+            del os.environ["AREC_PROFILE_DIR"]
         wall_s = time.perf_counter() - t0
         assert rc == 0, rc
+        # the Trainer's own trace holds the dispatch of steps 8..15, a
+        # replay: its kernel launches, counted by symbol
+        assert os.listdir(prof_dir) == ["trace_steps_8.json"], os.listdir(
+            prof_dir)
+        replayed = trace_kernel_counts(
+            os.path.join(prof_dir, "trace_steps_8.json"))
+        want = dict.fromkeys(KERNEL_SYMBOLS, 0)
+        want.update({"sampled_ce_fwd": 8, "sampled_ce_bwd": 8,
+                     "row_scatter": 16})
+        assert replayed == want, (replayed, want)
         summary = json.loads(out.strip().splitlines()[-1])
         assert summary["steps"] == 32, summary
         cfg = load_config(parse_args(mf_argv(mf_dir, 32)))
@@ -1962,8 +2369,10 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         if shapes is MF_SHAPES:
             assert all(MF_PACKED_BYTES <= s["bytes"] <= 1.01 * MF_PACKED_BYTES
                        for s in saves), (saves, MF_PACKED_BYTES)
+            # 8 eager warm-up steps and the 8 the capture records; the
+            # replays of steps 8..31 run no wrapper
             assert (used.get("sampled_ce_fwd"), used.get("sampled_ce_bwd"),
-                    used.get("row_scatter")) == (32, 32, 64), used
+                    used.get("row_scatter")) == (16, 16, 32), used
         assert set(used) <= {"sampled_ce_fwd", "sampled_ce_bwd",
                              "row_scatter"}, used
         log(f"(a) MF trained through cli.main.main to step 32 in "
@@ -1972,14 +2381,19 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
             f"{summary}")
         for r in records:
             log(f"  metrics record {r}")
-        log(f"  launches {used}")
+        log(f"  wrapper counts {used} (8 warm-up steps, 8 captured); the "
+            f"Trainer's AREC_PROFILE_DIR trace of the replay of steps 8..15: "
+            f"kernel events { {n: v for n, v in replayed.items() if v} }")
         for s in saves:
             log(f"  checkpoint step {s['step']}: {s['bytes']} bytes "
                 f"({MF_PACKED_BYTES} of packed tables by reckoning); save() "
                 f"blocked the loop {s['blocked_s']:.3f} s, the async write "
                 f"took {s['write_s']:.3f} s")
+        windows = [round(r["examples_per_s"], 1) for r in records
+                   if "examples_per_s" in r]
         log(f"  examples/s through the Trainer's loop (metrics, windows of "
-            f"16 steps): {[round(r['examples_per_s'], 1) for r in records if 'examples_per_s' in r]}")
+            f"16 steps, K = 8 steps a CUDA graph replay): {windows} (beside "
+            f"the eager loop's windows of 5.2e5-8.3e5 in PERF.md section 5)")
 
         # ---- (b) exact resume ---------------------------------------------
         (rc, out), used_b = counted(cli_main, mf_argv(mf_dir, 48),
@@ -1992,8 +2406,16 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
             straight, 48, **{"train.save_every_evals": 3}), device=dev)
         assert rc == 0, rc
         t0 = time.perf_counter()
+        with open(os.path.join(straight, "metrics.jsonl")) as f:
+            windows = [round(r["examples_per_s"], 1) for r in map(
+                json.loads, f) if "examples_per_s" in r]
+        log(f"  examples/s of the straight run's windows (no save between "
+            f"its evals; the first holds the warm-up and the capture): "
+            f"{windows} (beside the eager loop's 5.2e5-8.3e5 in PERF.md "
+            f"section 5)")
         equal, gap, leaves = compare_states(load_ckpt_state(mf_dir, 48),
                                             load_ckpt_state(straight, 48))
+        assert equal, (gap, leaves)
         _, ds, load_s = load_mf(sets, cuts)
         log(f"(b) resumed at step 32 (mid-epoch: 32 of "
             f"{len(ds.train_users) // tc.batch_size} batches) and trained "
@@ -2166,7 +2588,7 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         del one4
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return launches, mesh, per_rank
+    return launches, mesh, per_rank, replayed
 
 
 # ---- serving on a device mesh -----------------------------------------
@@ -3358,7 +3780,7 @@ def serve_compare(what, make, call, seen, reps=5):
             t0 = time.perf_counter()
             ids = call(rec)
             ms.append((time.perf_counter() - t0) * 1e3)
-        busy, _ = device_breakdown(f"{what}, recall_target {target}",
+        busy, _, _ = device_breakdown(f"{what}, recall_target {target}",
                                    lambda: call(rec))
         for row, s in zip(ids, seen):
             assert len(set(row.tolist())) == rec.k and (row >= 0).all()
@@ -3668,7 +4090,12 @@ def main() -> int:
     free()
     trained["mf"], writeback, bare_eps = mf_train_phase(dev)
     free()
-    through_trainer, through_mesh, mesh_per_rank = trainer_phase(dev)
+    through_dispatch, dispatch_replayed, dispatch_numbers = dispatch_phase(
+        dev)
+    log("dispatch numbers " + json.dumps(dispatch_numbers))
+    free()
+    (through_trainer, through_mesh, mesh_per_rank,
+     trainer_replayed) = trainer_phase(dev)
     log(f"MF examples/s: bare sparse steps {bare_eps:.1f} (the MF phase) "
         f"beside the Trainer's loop in the metrics records above")
     free()
@@ -3835,6 +4262,9 @@ def main() -> int:
         # the Trainer phase's runs and the raw-data configurations' runs:
         # the main path as users run it; the approximate serving batches
         k["launches_trainer"] = through_trainer[k["name"]]
+        # the device launches of the Trainer's replay of steps 8..15 (its
+        # AREC_PROFILE_DIR trace), which run no wrapper
+        k["launches_trainer_replayed"] = trainer_replayed[k["name"]]
         k["launches_raw_data"] = through_raw[k["name"]]
         k["launches_approx_serving"] = through_approx.get(k["name"], 0)
         # the mesh runs (gloo ranks sharing the card), summed over ranks
@@ -3847,9 +4277,18 @@ def main() -> int:
         k["launches_mesh_train_per_rank"] = {
             run: per.get(k["name"], [])
             for run, per in mesh_train_per_rank.items()}
+        # the K-step dispatch phase (c4's dense and MF's sparse step, each
+        # 32 steps: 8 eager warm-up steps, and 24 in CUDA graph replays,
+        # which run no wrapper): the wrappers' counts (the warm-up's
+        # launches and the capture's, which records 8 steps' launches into
+        # the graph), and the replays' device launches, counted by kernel
+        # symbol in their profiler trace
+        k["launches_dispatch"] = through_dispatch.get(k["name"], 0)
+        k["launches_dispatch_replayed"] = dispatch_replayed.get(k["name"], 0)
         k["launches"] += (k["launches_trainer"] + k["launches_raw_data"]
                           + k["launches_approx_serving"]
-                          + k["launches_mesh"] + k["launches_mesh_train"])
+                          + k["launches_mesh"] + k["launches_mesh_train"]
+                          + k["launches_dispatch"])
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)

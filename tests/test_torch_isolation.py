@@ -185,7 +185,9 @@ _CHILD_CLI = textwrap.dedent("""
 
     torch.set_num_threads(1)
     tmp, model = sys.argv[1], sys.argv[2]
+    k = sys.argv[3] if len(sys.argv) > 3 else "1"
     argv = ["--set", f"model.model={model}", "--set", "model.dim=8",
+            "--set", f"train.steps_per_dispatch={k}",
             "--set", "model.max_seq_len=6", "--set", f"data.data_dir={tmp}/d",
             "--set", "data.syn_users=60", "--set", "data.syn_items=50",
             "--set", "data.syn_interactions=600",
@@ -218,6 +220,19 @@ def test_cli_trains_then_serves_from_checkpoint_with_jax_and_arec_blocked(
     proc = subprocess.run([sys.executable, "-c", _CHILD_CLI, str(tmp_path),
                            model], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("served")
+
+
+@pytest.mark.parametrize("model", ["mf", "lstm"])
+def test_cli_trains_k_steps_per_dispatch_with_jax_and_arec_blocked(
+        tmp_path, model):
+    """The same at steps_per_dispatch 3: the Trainer's multi-step
+    (`train/graph.py`, K steps of the core on the CPU) stands alone."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD_CLI, str(tmp_path),
+                           model, "3"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("served")
 

@@ -153,22 +153,111 @@ def _tiny(tmp_path, **train):
                           **{"train_dir": str(tmp_path / "t"), **train}))
 
 
-def test_steps_per_dispatch_equals_single_steps(tmp_path):
-    """K = 4 runs four single steps: bit for bit the K = 1 run, across an
-    epoch boundary (71 batches an epoch) and a tail shorter than K."""
-    states = []
-    for k in (1, 4):
-        tr = Trainer(_tiny(tmp_path, steps_per_dispatch=k, max_steps=74,
-                           n_epoch=2, steps_per_checkpoint=8,
-                           sparse_update=True,
-                           train_dir=str(tmp_path / f"k{k}")),
+TIMING = ("t", "examples_per_s", "examples_per_s_per_chip")
+
+# Each case: the Trainer's runs (the train knobs of each invocation, in
+# one train_dir), the model, and the steps a K = 4 run must dispatch K at
+# a time. mf_sparse: max_steps 74, not a multiple of K, across an epoch of
+# 71 batches that ends mid-group; lstm: the dense step of the sequence
+# model (its scan and CE wrappers) over epochs of 14 batches, each ending
+# mid-group; resume: 10 steps, then a second
+# invocation to 30 that restores step 10, off the K grid; plateau: a
+# learning rate high enough that a window's mean loss rises, so an eval
+# inside the K = 4 run decays the lr (asserted below).
+DISPATCH_CASES = {
+    "mf_sparse": (dict(max_steps=74, n_epoch=2, steps_per_checkpoint=8,
+                       sparse_update=True), [{}], "mf",
+                  list(range(0, 68, 4))),
+    "mf_dense": (dict(max_steps=30, steps_per_checkpoint=8), [{}], "mf",
+                 [0, 4, 8, 12, 16, 20, 24]),
+    "lstm": (dict(max_steps=22, steps_per_checkpoint=4, n_epoch=4,
+                  batch_size=8), [{}], "lstm", [0, 4, 8, 16]),
+    "resume": (dict(steps_per_checkpoint=8, sparse_update=True),
+               [dict(max_steps=10), dict(max_steps=30)], "mf",
+               [0, 4, 12, 16, 20, 24]),
+    "plateau": (dict(max_steps=48, steps_per_checkpoint=4,
+                     learning_rate=3.0, save_every_evals=3), [{}], "mf",
+                list(range(0, 48, 4))),
+}
+
+
+def _dispatch_run(tmp_path, k, case):
+    """The case's invocations at steps_per_dispatch k: (metrics records
+    less their timings, {checkpoint step: its state}, the final state, the
+    global steps at which K steps were dispatched)."""
+    train, runs, model, _ = DISPATCH_CASES[case]
+    d = tmp_path / f"k{k}"
+    train = dict(train)
+    batch = train.pop("batch_size", 32)
+    cfg = _tiny(tmp_path, steps_per_dispatch=k, train_dir=str(d),
+                **train).override({"train.batch_size": batch})
+    if model == "lstm":
+        cfg = cfg.replace(model=ModelConfig(model="lstm", dim=8,
+                                            max_seq_len=6,
+                                            use_pallas_scan=True))
+    dispatched = []
+    for run in runs:
+        tr = Trainer(cfg.override({f"train.{a}": v for a, v in run.items()}),
                      device="cpu")
+        if k > 1:
+            multi = tr.multi_step_fn
+
+            def counted(state, batches, gens, multi=multi):
+                dispatched.append(int(state.step))
+                return multi(state, batches, gens)
+            tr.multi_step_fn = counted
         tr.train()
-        states.append(tr.state)
-        assert _metric_steps(str(tmp_path / f"k{k}")) == list(
-            range(8, 73, 8)) + [74]
-    for a, b in zip(_leaves(states[0]._asdict()), _leaves(states[1]._asdict())):
+        tr.close()
+    with open(d / "metrics.jsonl") as f:
+        records = [{a: v for a, v in json.loads(line).items()
+                    if a not in TIMING} for line in f]
+    ckpts = {s: torch.load(d / "ckpt" / str(s) / "state.pt")
+             for s in _ckpt_steps(str(d))}
+    return records, ckpts, tr.state, dispatched
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_steps_per_dispatch_equals_single_steps(tmp_path, case):
+    """K = 4 steps per dispatch (`make_multi_step` / `make_sparse_multi_step`,
+    K single steps of the core on the CPU) against K = 1: the same metrics
+    records, checkpoints and final state, bit for bit; K steps go out at
+    once only from a K-aligned step with room for K, single steps fill in
+    around them (arec's rule)."""
+    one = _dispatch_run(tmp_path, 1, case)
+    four = _dispatch_run(tmp_path, 4, case)
+    assert four[0] == one[0]
+    assert sorted(four[1]) == sorted(one[1])
+    for step in one[1]:
+        for a, b in zip(_leaves(one[1][step]), _leaves(four[1][step])):
+            assert torch.equal(a, b), step
+    for a, b in zip(_leaves(one[2]._asdict()), _leaves(four[2]._asdict())):
         assert torch.equal(a, b)
+    assert four[3] == DISPATCH_CASES[case][3]
+    if case == "mf_sparse":
+        assert [r["step"] for r in one[0]] == list(range(8, 73, 8)) + [74]
+    if case == "plateau":
+        lrs = [r["lr"] for r in one[0] if "lr" in r]
+        assert min(lrs) < lrs[0], lrs
+
+
+@pytest.mark.parametrize("k,first", [(1, 10), (8, 8)])
+def test_profile_window_at_steps_per_dispatch(tmp_path, monkeypatch, k,
+                                              first):
+    """AREC_PROFILE_DIR at the default window, steps [10, 15): the Trainer
+    writes one trace, at K = 8 too, where the window lies inside the
+    dispatch of steps 8..15 (the trace holds whole dispatches and is named
+    after the first step it holds)."""
+    out = tmp_path / "prof"
+    monkeypatch.setenv("AREC_PROFILE_DIR", str(out))
+    for var in ("AREC_PROFILE_START", "AREC_PROFILE_STEPS"):
+        monkeypatch.delenv(var, raising=False)
+    tr = Trainer(_tiny(tmp_path, steps_per_dispatch=k, max_steps=24,
+                       steps_per_checkpoint=8), device="cpu")
+    tr.train()
+    tr.close()
+    assert sorted(os.listdir(out)) == [f"trace_steps_{first}.json"]
+    with open(out / f"trace_steps_{first}.json") as f:
+        assert json.load(f)["traceEvents"]
 
 
 @pytest.mark.parametrize("train,err,match", [
