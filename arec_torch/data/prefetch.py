@@ -36,6 +36,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from arec_torch import obs
+
 
 class Staged:
     """A batch whose copies to `device` are queued on a copy stream, with
@@ -109,7 +111,9 @@ def to_device(device, depth: int = 2) -> Callable:
 def prefetch(it: Iterable, depth: int = 2,
              transform: Callable | None = None) -> Iterator:
     """Wrap any batch iterator; `transform` runs on the worker thread. A
-    `Staged` batch is handed over with `Staged.wait` in the consumer."""
+    `Staged` batch is handed over with `Staged.wait` in the consumer. The
+    worker's `next` of the iterator and its `transform` of each batch are
+    the spans `input.build` and `input.stage` (`arec_torch.obs`)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -124,9 +128,10 @@ def prefetch(it: Iterable, depth: int = 2,
 
     def worker():
         try:
-            for item in it:
+            for item in obs.iterate("input.build", it):
                 if transform is not None:
-                    item = transform(item)
+                    with obs.span("input.stage"):
+                        item = transform(item)
                 if not put((True, item)):
                     return
         except BaseException as e:  # handed to the consumer, raised there

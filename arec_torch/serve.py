@@ -10,9 +10,13 @@ then item latents (pre-cast to the compute dtype) → per batch `_query_fn`
 → the sequence family's `seq_final_state_full` (the carried-state
 segmented scan, through the CUDA LSTM or GRU kernel with
 `use_pallas_scan`) or MF's `mf_user_latents` → seen-masked top-k.
-Requests are padded to a fixed batch of `serve_batch`. `refresh()` follows
-training in place: the newest checkpoint re-restored into the live object,
-the old state freed first, so residency never doubles.
+Requests are padded to a fixed batch of `serve_batch`. Each batch's build,
+H2D copy, query, top-k and D2H wait are the spans `serve.batch`,
+`serve.h2d`, `serve.query`, `serve.topk` and `serve.d2h`, its live and
+padded rows the counters `serve.rows_live` and `serve.rows`
+(`arec_torch.obs`, recorded while a torch profiler records). `refresh()`
+follows training in place: the newest checkpoint re-restored into the live
+object, the old state freed first, so residency never doubles.
 
 Weights may also be handed in as an arec-layout param tree (numpy or
 torch; see `arec_torch.bridge`); such a Recommender follows no checkpoint.
@@ -38,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from arec_torch import bridge, resolve_device
+from arec_torch import bridge, obs, resolve_device
 from arec_torch.config import Config
 from arec_torch.dist.global_io import all_hosts_concat, shard_from_hosts
 from arec_torch.models import mf as mf_mod
@@ -218,13 +222,17 @@ class Recommender:
         v, b = self._vb
         sh = self._sh
         with torch.inference_mode():
-            for batch, n_valid in batches:
-                tb = shard_from_hosts(batch, None if sh is None else sh.mesh,
-                                      self.device)
+            for batch, n_valid in obs.iterate("serve.batch", batches):
+                obs.count("serve.rows_live", n_valid)
+                obs.count("serve.rows", self.serve_batch)
+                with obs.span("serve.h2d"):
+                    tb = shard_from_hosts(
+                        batch, None if sh is None else sh.mesh, self.device)
                 seen = tb.pop("seen")
                 _, ids = self._step(self._params, v, b, tb, seen)
-                ids = (ids.cpu().numpy() if sh is None else
-                       all_hosts_concat(ids, sh.data_group))
+                with obs.span("serve.d2h"):
+                    ids = (ids.cpu().numpy() if sh is None else
+                           all_hosts_concat(ids, sh.data_group))
                 ids_out.append(ids[:n_valid].astype(np.int32))
         if not ids_out:                      # empty request list
             return np.zeros((0, self.k), np.int32)

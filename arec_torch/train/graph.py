@@ -25,7 +25,9 @@ CUDA:
     inputs on the current stream (ordered after the previous replay, so a
     queued replay never sees the next dispatch's inputs), re-seeds the
     graph's generators from the new keys (`rng.derive`), replays, and
-    hands out clones of the [K] metric outputs.
+    hands out clones of the [K] metric outputs. All that precedes the
+    replay is the span `dispatch.prepare`, the replay `dispatch.replay`
+    (`arec_torch.obs`: recorded while a torch profiler records).
 
 The state lives at fixed addresses: every step core updates its params,
 optimizer state, `step` and `lr_scale` in place, and the capture raises if
@@ -52,6 +54,7 @@ from typing import Callable
 
 import torch
 
+from arec_torch import obs
 from arec_torch.rng import KeyTrace, derive, key_trace
 
 
@@ -116,23 +119,27 @@ class scan_multi:
         self._graph = None
 
     def __call__(self, state, batches, gens):
-        slots = _slots(batches, self.k)
-        if len(gens) != self.k:
-            raise ValueError(f"a dispatch takes {self.k} keys, "
-                             f"got {len(gens)}")
+        if self._graph is not None:
+            return state, self._replay(state, batches, gens)
+        slots = self._args(batches, gens)
         leaf = _state_leaves(state)[0]
         if not self._on_card(leaf):
             return self._steps(state, slots, gens)
         roots = [g.initial_seed() for g in gens]
-        if self._graph is None:
-            trace = KeyTrace(roots, "record", device_type=self.trace_device)
-            with self._warm_up_stream(leaf.device):
-                state, metrics = self._steps(state, slots, gens, trace)
-            self._paths = trace.paths
-            self._capture(state, slots, gens, roots)
-            return state, metrics
-        self._check(state, slots)
-        return state, self._replay(slots, roots)
+        trace = KeyTrace(roots, "record", device_type=self.trace_device)
+        with self._warm_up_stream(leaf.device):
+            state, metrics = self._steps(state, slots, gens, trace)
+        self._paths = trace.paths
+        self._capture(state, slots, gens, roots)
+        return state, metrics
+
+    def _args(self, batches, gens) -> list[dict]:
+        """The K batch dicts, once `batches` and `gens` hold K each."""
+        slots = _slots(batches, self.k)
+        if len(gens) != self.k:
+            raise ValueError(f"a dispatch takes {self.k} keys, "
+                             f"got {len(gens)}")
+        return slots
 
     def _steps(self, state, slots, gens, trace=None):
         """K calls of the core, under `trace` when one is given."""
@@ -227,10 +234,17 @@ class scan_multi:
         for key, buf in self._inputs.items():
             torch.stack([b[key] for b in slots], out=buf)
 
-    def _replay(self, slots, roots) -> dict:
-        self._stage(slots)
-        for gen, seed in zip(self._pool, derive(roots, self._paths)):
-            gen.manual_seed(seed)
-        self._launch(self._graph, roots)
+    def _replay(self, state, batches, gens) -> dict:
+        """A later dispatch: check, stage and re-seed (the span
+        `dispatch.prepare`), then replay (`dispatch.replay`)."""
+        with obs.span("dispatch.prepare"):
+            slots = self._args(batches, gens)
+            self._check(state, slots)
+            self._stage(slots)
+            roots = [g.initial_seed() for g in gens]
+            for gen, seed in zip(self._pool, derive(roots, self._paths)):
+                gen.manual_seed(seed)
+        with obs.span("dispatch.replay"):
+            self._launch(self._graph, roots)
         self.replays += 1
         return {key: v.clone() for key, v in self._out.items()}

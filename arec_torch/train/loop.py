@@ -81,7 +81,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from arec_torch import resolve_device
+from arec_torch import obs, resolve_device
 from arec_torch.config import Config
 from arec_torch.data.dataset import eval_batches, mf_batches, seq_batches
 from arec_torch.data.io import load_or_prepare
@@ -345,8 +345,10 @@ def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
                                  recall_target=target, score_mem_mb=mem)
 
     def step(params, v, b, batch, seen):
-        q = _query_fn(spec, params, item_dev, user_dev, batch, sh)
-        return topk(q, v, b, seen)
+        with obs.span("serve.query"):
+            q = _query_fn(spec, params, item_dev, user_dev, batch, sh)
+        with obs.span("serve.topk", stream=q.device):
+            return topk(q, v, b, seen)
     return step
 
 

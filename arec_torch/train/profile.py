@@ -8,6 +8,13 @@ CUDA graph replay's too. A K-step dispatch is one call of `on_step` for
 its K steps: the trace opens at the first dispatch that holds a step of
 the window and closes at the first dispatch past it, so it holds whole
 dispatches and is named after the first step it holds.
+
+This profiler, like any torch profiler recording in the process, turns on
+the program's spans (`arec_torch.obs`), which the trace then holds by name:
+`serve.batch`, `serve.h2d`, `serve.query`, `serve.topk`, `serve.d2h`,
+`dispatch.prepare`, `dispatch.replay`; the prefetch worker's `input.build`
+and `input.stage` are counted in `obs.snapshot()` only, since the profiler
+records no range of a thread it was not started on.
 """
 
 from __future__ import annotations

@@ -985,9 +985,12 @@ def trace_kernel_counts(path):
 def traced(fn):
     """fn() under torch.profiler (host and device); returns (its result,
     the profiler's device events as {key: (count, self device us)}, the
-    wall ms)."""
+    wall ms, the device's busy ms: the union of its activity intervals, so
+    work that overlaps on two streams counts once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness.trace import union_s
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -998,17 +1001,21 @@ def traced(fn):
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0}     # kernels, not aten ops
-    return result, dev, wall_ms
+    busy_ms = union_s(
+        (e.start_ns() / 1e6, (e.start_ns() + e.duration_ns()) / 1e6)
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not e.is_user_annotation())
+    return result, dev, wall_ms, busy_ms
 
 
 def device_breakdown(what, fn):
-    """Run fn() once under torch.profiler and print device busy time, the
-    idle share of the wall time and the top kernels by device time;
-    returns (busy ms, wall ms, the number of device activities: kernels,
-    copies, fills)."""
-    _, dev, wall_ms = traced(fn)
+    """Run fn() once under torch.profiler and print device busy time (the
+    union of the device's intervals), the idle share of the wall time and
+    the top kernels by device time; returns (busy ms, wall ms, the number
+    of device activities: kernels, copies, fills)."""
+    _, dev, wall_ms, busy_ms = traced(fn)
     dev_us = {key: us for key, (_, us) in dev.items()}
-    busy_ms = sum(dev_us.values()) / 1e3
     count = sum(n for n, _ in dev.values())
     log(f"profile of {what}: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}), "
@@ -1943,7 +1950,7 @@ def dispatch_check(what, dev, state, core, batches, k, decay, expect,
     def replays(st, lo, hi):
         """graphed(st, lo, hi) under the profiler: (its result, {kernel:
         device launches})."""
-        out, dev_events, _ = traced(lambda: graphed(st, lo, hi))
+        out, dev_events, _, _ = traced(lambda: graphed(st, lo, hi))
         return out, kernel_counts(
             (key, n) for key, (n, _) in dev_events.items())
 
