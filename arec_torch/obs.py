@@ -43,7 +43,8 @@ The spans, each at the layer boundary where its work happens:
   input.stage     its staging of the batch (`data/prefetch`)
 
 and the counters serve.rows_live, serve.rows: the live and padded rows of
-every served batch.
+every served batch; serve.topk_kernel: the exact top-k calls that took the
+fused kernel pair (`train/evalu.topk_with_mask`).
 """
 
 from __future__ import annotations

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from arec_torch import obs
 from arec_torch.tables.engine import mm_f32
 
 BLOCKED_EVAL_MIN_V = 131072  # above this, stream query blocks
@@ -20,20 +21,31 @@ BLOCKED_EVAL_MIN_V = 131072  # above this, stream query blocks
 def topk_with_mask(query, item_latents, item_bias, seen, k: int = 30,
                    compute_dtype=torch.bfloat16, recall_target: float = 1.0,
                    score_mem_mb: int = 512):
-    """Dispatch by vocabulary size: small V materialises [B, V] scores;
-    production V goes through the query-blocked
-    `arec_torch.retrieval.mips.blocked_topk_mips`, whose peak score memory
-    is bounded by `score_mem_mb`. The two are exactly equal.
-    recall_target < 1 (arec's approx_max_k mode) always takes the blocked
-    path, which then selects approximately (`mips.approx_max_k`)."""
-    if recall_target < 1.0 or item_latents.shape[0] > BLOCKED_EVAL_MIN_V:
-        from arec_torch.retrieval.mips import blocked_topk_mips
-        return blocked_topk_mips(query, item_latents, item_bias, seen, k=k,
-                                 compute_dtype=compute_dtype,
-                                 recall_target=recall_target,
-                                 score_mem_mb=score_mem_mb)
-    return _topk_full(query, item_latents, item_bias, seen, k=k,
-                      compute_dtype=compute_dtype)
+    """The exact top-k (recall_target 1) of CUDA tensors is the fused
+    kernels of `arec_torch.kernels.mips_topk` at every V; on the CPU it is
+    their plain version, `mips_topk_plain`: `_topk_full` up to
+    BLOCKED_EVAL_MIN_V items, the query-blocked
+    `arec_torch.retrieval.mips.blocked_topk_mips` (peak score memory
+    bounded by `score_mem_mb`) above it. The two are exactly equal, but for
+    a seen id ≥ V, which the first drops and the second clamps to V − 1;
+    the kernels keep the rule of the branch at that V.
+    recall_target < 1 (arec's approx_max_k mode) takes the blocked path,
+    which then selects approximately (`mips.approx_max_k`)."""
+    if recall_target >= 1.0:
+        from arec_torch.kernels import mips_topk as mk
+        if query.device.type == "cuda":
+            obs.count("serve.topk_kernel", 1)
+            return mk.mips_topk(query.float().contiguous(), item_latents,
+                                item_bias, seen.to(torch.int32), k=k,
+                                compute_dtype=compute_dtype)
+        return mk.mips_topk_plain(query, item_latents, item_bias, seen, k=k,
+                                  compute_dtype=compute_dtype,
+                                  score_mem_mb=score_mem_mb)
+    from arec_torch.retrieval.mips import blocked_topk_mips
+    return blocked_topk_mips(query, item_latents, item_bias, seen, k=k,
+                             compute_dtype=compute_dtype,
+                             recall_target=recall_target,
+                             score_mem_mb=score_mem_mb)
 
 
 def _topk_full(query, item_latents, item_bias, seen, k: int = 30,

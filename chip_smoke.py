@@ -18,7 +18,9 @@
    again at the MF training shape; the row scatter, bit for bit, into the
    MF model's packed item and user tables, at its edge cases and at each
    (source, destination) phase pair of its 16-byte path, with its launch
-   plan: grid, registers, resident blocks, vector width), checks
+   plan: grid, registers, resident blocks, vector width; the fused
+   seen-masked top-k at MF's and c4's serving shapes, up to ties, with its
+   launch plan), checks
    that the scans repeat bit for bit, and times kernel, plain version and
    a library call (a yardstick only); the bf16 scan backwards also by
    stage (gate pass, sweep, dWh).
@@ -1553,6 +1555,97 @@ def row_scatter_phase(dev, shapes=MF_SHAPES):
     return times, plans
 
 
+# the exact seen-masked top-k at the serving shapes: (B, V, D, seen width)
+TOPK_SHAPES = {"mf": (256, 1_304_126, 128, 64), "c4": (256, 50_001, 128, 64)}
+
+
+def topk_inputs(B, V, D, S, dev, seed=0):
+    """query f32, bf16 items, f32 bias and a seen slab of train-item-like
+    ids (PAD-filled past each row's length) on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, D, generator=g, device=dev)
+    items = (0.1 * torch.randn(V, D, generator=g, device=dev)).to(
+        torch.bfloat16)
+    bias = 0.1 * torch.randn(V, generator=g, device=dev)
+    seen = torch.randint(0, V, (B, S), generator=g, device=dev,
+                         dtype=torch.int32)
+    width = torch.randint(1, S + 1, (B, 1), generator=g, device=dev)
+    seen = torch.where(torch.arange(S, device=dev) < width, seen, -1)
+    return q, items, bias, seen
+
+
+def bound_topk(B, V, D, S, k):
+    """mips_topk's roofline: the items (bf16) and their bias read once, the
+    query, the seen slab and the lists; 2·B·V·D product FLOPs."""
+    nbytes = V * D * 2 + V * 4 + B * D * 4 + B * S * 4 + B * k * 12
+    return roofline(nbytes, 2 * B * V * D, "bfloat16")
+
+
+def mips_topk_phase(dev, shapes=TOPK_SHAPES, k=30):
+    """The fused top-k kernels against their plain version (the chain of
+    library ops they replace: `blocked_topk_mips` at MF's V, `_topk_full`
+    at c4's) at the serving shapes: scores within f32 round-off, ids equal
+    up to ties; the launch plan; device time a call queued behind a GPU
+    spin for the kernels, the plain version and the library yardstick
+    (torch.mm of the bf16 operands and torch.topk: no bias, no mask), the
+    kernels back to back with their host cost, and the split of their
+    device time between the select kernel (sample and select passes) and
+    the union kernel (floor and final passes; profiler)."""
+    import torch
+    from arec_torch.kernels import mips_topk as tmk
+    out = {}
+    for name, (B, V, D, S) in shapes.items():
+        q, items, bias, seen = topk_inputs(B, V, D, S, dev)
+        plan = tmk.launch_plan(q, items, k)
+        log(f"mips_topk {name} launch plan: {plan}")
+        before = tmk.mips_topk.launches
+        gv, gi = tmk.mips_topk(q, items, bias, seen, k=k)
+        wv, wi = tmk.mips_topk_plain(q, items, bias, seen, k=k)
+        torch.cuda.synchronize()
+        assert tmk.mips_topk.launches == before + 1
+        err = float((gv - wv).abs().max())
+        assert err <= 1e-4 + 1e-6 * float(wv.abs().max()), err
+        same = float((gi == wi).float().mean())
+        # an id the kernel and the plain path place differently must tie
+        qb = q.to(torch.bfloat16).float()
+        mine = (torch.einsum("bd,bkd->bk", qb, items[gi].float())
+                + bias[gi])
+        rule = tmk.seen_rule(seen, V)
+        mine -= 1e9 * (rule[:, None, :].long() == gi[:, :, None]).sum(-1)
+        tie = float(((mine - wv).abs() * (gi != wi)).max())
+        assert tie <= 1e-4 + 1e-6 * float(wv.abs().max()), tie
+        qh = q.to(torch.bfloat16)
+        calls = {
+            "ms": lambda: tmk.mips_topk(q, items, bias, seen, k=k),
+            "plain_ms": lambda: tmk.mips_topk_plain(q, items, bias, seen,
+                                                    k=k),
+            "library_ms": lambda: torch.topk(torch.mm(qh, items.T), k)}
+        t = {key: queued_ms([fn], reps=24) for key, fn in calls.items()}
+        t["back_to_back_ms"] = cuda_ms(calls["ms"], 50)
+        _, devs, _, busy_ms = traced(lambda: [calls["ms"]() for _ in
+                                              range(20)])
+        t["select_ms"] = sum(us for key, (_, us) in devs.items()
+                             if "mips_select_kernel" in key) / 20e3
+        t["union_ms"] = sum(us for key, (_, us) in devs.items()
+                            if "mips_union_kernel" in key) / 20e3
+        bms, by, nbytes, flops = bound_topk(B, V, D, S, k)
+        t.update(bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+                 max_abs_err=err, same_ids=same, tie_gap=tie, plan=plan,
+                 shape=f"B={B} V={V} D={D} S={S} k={k}")
+        report("mips_topk", t["shape"], name, t,
+               "torch.mm of the bf16 operands + torch.topk")
+        log(f"mips_topk {name}: sample + select {t['select_ms']:.4f} ms, "
+            f"floor + final {t['union_ms']:.4f} ms a call (profiler); "
+            f"max |Δ score| "
+            f"{err:.3e}, ids equal at {same:.4f} of ranks, the rest tied "
+            f"within {tie:.3e}")
+        out[name] = t
+        del q, items, bias, seen, calls
+        free()
+    return out
+
+
 def load_mf(sets=MF_SETS, cuts=MF_CUTS):
     """syn_xing_full's config on one card with the listed cuts, and the
     prepared dataset."""
@@ -1575,10 +1668,12 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     from a packed sparse-Adagrad param tree (seeded random weights): 256
     users with their train items as seen lists, then 3 request-loop lines;
     the answers against an independent f32 top-k of the same scores; a
-    profile of one batch. MF serving runs no kernel of the port: every
-    count stays 0."""
+    profile of one batch. MF serving runs one kernel of the port, the
+    fused top-k (once a batch and once a loop line); every other count
+    stays 0."""
     import numpy as np
     import torch
+    from arec_torch.kernels import mips_topk as tmk
     from arec_torch.models.mf import MFSpec, init_mf
     from arec_torch.serve import Recommender, _serve_loop
     from arec_torch.train.loop import _query_fn
@@ -1616,7 +1711,7 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     first_s = time.perf_counter() - t0
 
     counters = all_counters()
-    for f in counters.values():                      # ---- the main path
+    for f in (*counters.values(), tmk.mips_topk):    # ---- the main path
         f.launches = 0
     t0 = time.perf_counter()
     ids = rec.for_users(users, seen=seen)
@@ -1626,7 +1721,9 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     out = io.StringIO()
     _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
     launches = {k: f.launches for k, f in counters.items()}
-    assert not any(launches.values()), launches    # ---- read just after
+    topk_launches = tmk.mips_topk.launches         # ---- read just after
+    assert not any(launches.values()), launches
+    assert topk_launches == 1 + len(lines), topk_launches
 
     V, k = spec.item.schema.num_entities, rec.k
     assert ids.shape == (256, k), ids.shape
@@ -1663,14 +1760,15 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     log(f"served {len(users)} users (seen lists of up to "
         f"{max(map(len, seen))} train items) + {len(lines)} loop lines: "
         f"k={k} distinct unseen ids each; served scores vs an independent "
-        f"f32 top-k: max |Δ| {gap:.3e} (tolerance {tol:.3e}); no kernel "
-        f"launched ({launches})")
+        f"f32 top-k: max |Δ| {gap:.3e} (tolerance {tol:.3e}); the fused "
+        f"top-k launched {topk_launches} times, no other kernel "
+        f"({launches})")
     log(f"startup {startup_s:.3f} s (from the prepared cache, item "
         f"latents of {V} items included), first batch {first_s:.3f} s, "
         f"batch of 256 users: {batch_ms:.3f} ms")
     device_breakdown("one served MF batch",
                      lambda: rec.for_users(users, seen=seen))
-    return launches
+    return topk_launches
 
 
 def dense_state_from_sparse(state, paths):
@@ -4050,6 +4148,7 @@ def main() -> int:
     try:
         from arec_torch.kernels import _build, lstm_scan as tk
         from arec_torch.kernels import gru_scan as tg
+        from arec_torch.kernels import mips_topk as tmk
         from arec_torch.kernels import row_scatter as trs
         from arec_torch.kernels import sampled_softmax as tks
     except ImportError as e:
@@ -4068,7 +4167,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL,
-                            tg.KERNEL, tg.KERNEL_BWD, trs.KERNEL])
+                            tg.KERNEL, tg.KERNEL_BWD, trs.KERNEL,
+                            tmk.KERNEL])
     log(f"built {sorted(reports) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
@@ -4087,13 +4187,14 @@ def main() -> int:
     gru_errs, gru_times = gru_kernel_phase(dev)
     scatter_times, scatter_plans = row_scatter_phase(dev)
     free()
+    topk_times = mips_topk_phase(dev)
     served, trained = {}, {}
     for cell in ("lstm", "gru"):
         served[cell] = slice_phase(dev, cell)
         free()
         trained[cell] = train_phase(dev, cell)
         free()
-    mf_serve_phase(dev)
+    topk_served = mf_serve_phase(dev)
     free()
     trained["mf"], writeback, bare_eps = mf_train_phase(dev)
     free()
@@ -4296,6 +4397,27 @@ def main() -> int:
                           + k["launches_approx_serving"]
                           + k["launches_mesh"] + k["launches_mesh_train"]
                           + k["launches_dispatch"])
+    # the fused top-k replaces no TPU kernel; its launches are those of the
+    # MF serving phase (the other phases do not count it)
+    t = topk_times["mf"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "back_to_back_ms", "select_ms", "union_ms", "max_abs_err",
+            "same_ids", "tie_gap", "shape")
+    kernels.append({
+        "name": tmk.KERNEL, "route": "cuda",
+        "source": "arec_torch/csrc/mips_topk.cu", "replaces": None,
+        "replaces_fn": "none (arec's top-k is lax.top_k, left to XLA)",
+        "launches": topk_served, "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "library": "torch.mm of the bf16 operands + torch.topk",
+        "timing": "device time per call, launches queued behind a GPU "
+                  "spin (CUDA events); back_to_back_ms: 50 calls as the "
+                  "host issues them",
+        "back_to_back_ms": t["back_to_back_ms"], "dtype": "bfloat16",
+        "shape": t["shape"], "launch_plan": t["plan"],
+        "c4_shape": {k: topk_times["c4"][k] for k in keys}})
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)
