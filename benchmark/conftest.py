@@ -24,13 +24,16 @@ TINY_LIMITS = {"loss_gap": 1e-3, "grad_gap": 1e-3, "change_gap": 1e-3,
                "score_gap": 1e-2}
 
 
-def tiny(cell):
-    """The cell with its configuration cut to TINY."""
+def tiny(cell, rnn_cell: str | None = None):
+    """The cell with its configuration cut to TINY; a sequence cell's
+    `model.cell` set to `rnn_cell` where one is given."""
     cfg = copy.deepcopy(cell.config)
-    for part in (TINY, TINY_SEQ if cfg["config"]["model"]["model"] == "lstm"
-                 else {}):
+    seq = cfg["config"]["model"]["model"] == "lstm"
+    for part in (TINY, TINY_SEQ if seq else {}):
         for sec, kv in part.items():
             cfg["config"][sec].update(kv)
+    if seq and rnn_cell:
+        cfg["config"]["model"]["cell"] = rnn_cell
     cell.config = cfg
     cell.limits = {k: TINY_LIMITS[k] for k in cell.limits}
     return cell
@@ -41,16 +44,32 @@ def cache_dir(tmp_path_factory):
     return str(tmp_path_factory.mktemp("bench_cache"))
 
 
-@pytest.fixture
-def tiny_cells(monkeypatch, cache_dir):
-    """Cell.find gives tiny cells, their data cached in the session's
-    temporary directory."""
+def use_tiny_cells(monkeypatch, cache_dir, rnn_cell=None):
+    """Cell.find gives tiny cells (each sequence configuration's
+    `model.cell` set to `rnn_cell` where one is given), their data cached
+    in `cache_dir`; returns harness.bench."""
     import torch
     from harness import bench
     torch.set_num_threads(2)
     find = bench.Cell.find
     monkeypatch.setattr(bench.Cell, "find",
                         staticmethod(lambda name, spec=None:
-                                     tiny(find(name, spec))))
+                                     tiny(find(name, spec), rnn_cell)))
     monkeypatch.setattr(bench, "CACHE", cache_dir)
     return bench
+
+
+def tiny_case(monkeypatch, cache_dir, case: str) -> str:
+    """A test case "<workload>" or "<workload>@<cell>" (the workload's
+    sequence configuration switched to that recurrent cell) made tiny;
+    returns the workload's name."""
+    name, _, rnn_cell = case.partition("@")
+    use_tiny_cells(monkeypatch, cache_dir, rnn_cell or None)
+    return name
+
+
+@pytest.fixture
+def tiny_cells(monkeypatch, cache_dir):
+    """Cell.find gives tiny cells, their data cached in pytest's
+    temporary directory."""
+    return use_tiny_cells(monkeypatch, cache_dir)

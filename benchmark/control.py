@@ -31,21 +31,22 @@ from reference import train as rtrain, weights  # noqa: E402
 
 
 def _setup(cell, seed: int, dev):
+    """(cfg, family, entities, data, static parts, the run's weights)."""
     cfg = program.config(cell, seed)
     body = cell.config["config"]
     ents = rdata.entities(body)
     d = rdata.load(body["data"], bench.CACHE)
-    return cfg, program.family(cfg), ents, d, rdata.static_parts(ents, d,
-                                                                 dev)
+    fam = program.family(cfg)
+    return (cfg, fam, ents, d, rdata.static_parts(ents, d, dev),
+            weights.make(fam, ents, seed, dev, program.rnn_cell(cfg)))
 
 
 def train_readings(cell, seed: int, variant: str, dev) -> dict:
     drv = bench.Cell.driver(cell)
-    cfg, fam, ents, d, m = _setup(cell, seed, dev)
+    cfg, fam, ents, d, m, p0 = _setup(cell, seed, dev)
     steps = 2 * cfg.train.steps_per_dispatch
     batches = list(enumerate(itertools.islice(
         rdata.batches(d, cell.config["config"], cfg.train.seed), steps)))
-    p0 = weights.make(fam, ents, seed, dev)
     lr = cfg.train.learning_rate
     rules = program.rules(p0, cfg.train.sparse_update)
     if variant == "control":
@@ -71,11 +72,11 @@ def train_readings(cell, seed: int, variant: str, dev) -> dict:
 
 def serve_readings(cell, seed: int, variant: str, dev) -> dict:
     drv = bench.Cell.driver(cell)
-    cfg, fam, ents, d, m = _setup(cell, seed, dev)
+    cfg, fam, ents, d, m, w = _setup(cell, seed, dev)
     pool = drv._pool(cell.traffic, d, cfg, np.random.default_rng([seed, 1]))
     reqs = [(i, j) for i in range(len(pool)) for j in range(len(pool[i][1]))]
     reqs = reqs[:cell.traffic["check_requests"]]
-    P = weights.nest(weights.make(fam, ents, seed, dev))
+    P = weights.nest(w)
     seen = [pool[i][1][j] for i, j in reqs]
     k = cfg.train.eval_topk
 
@@ -86,7 +87,7 @@ def serve_readings(cell, seed: int, variant: str, dev) -> dict:
             return model.mf_queries(P, m, users)
         return drv._seq_queries(P, m, [pool[i][0][j] for i, j in reqs],
                                 cfg.model.max_seq_len, ents["item"].num, dt,
-                                dev)
+                                dev, program.rnn_cell(cfg))
     with torch.no_grad():
         v, b = (model.mf_items(P, m) if fam == "mf"
                 else model.seq_items(P, m))

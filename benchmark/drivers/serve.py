@@ -73,7 +73,7 @@ def run(r) -> None:
     t = r.cell.traffic
     ds = rdata.load(r.cell.config["config"]["data"], bench.CACHE)
     ents = rdata.entities(r.cell.config["config"])
-    w = weights.make(fam, ents, r.seed, dev)
+    w = weights.make(fam, ents, r.seed, dev, program.rnn_cell(cfg))
     rec = Recommender(cfg, params=program.param_tree(fam, w), device=dev)
     del w
     rng = np.random.default_rng([r.seed, 1])
@@ -128,7 +128,8 @@ def run(r) -> None:
 
 def _counts(r, cfg, ents, pool, done, serve_batch: int) -> None:
     """The window's live work, for the traced run's readers: FLOPs of the
-    live requests, and each serving scan launch's (batch, valid steps)."""
+    live requests (the recurrence's by the configuration's cell), and
+    each serving scan launch's (batch, valid steps)."""
     from roofline.counts import mf_serve_flops, seq_serve_flops
     c = r.counts
     d, V = cfg.model.dim, ents["item"].num
@@ -149,7 +150,8 @@ def _counts(r, cfg, ents, pool, done, serve_batch: int) -> None:
             valid += v
     c["scan_launches"] = launches
     c["flops"] = seq_serve_flops(valid, c["requests"], V, d, d,
-                                 len(ents["item"].fields))
+                                 len(ents["item"].fields),
+                                 program.rnn_cell(cfg))
 
 
 def check(r, cfg, fam, ents, ds, pool, answers, dev, rng) -> None:
@@ -165,7 +167,8 @@ def check(r, cfg, fam, ents, ds, pool, answers, dev, rng) -> None:
         if longest not in chosen:
             chosen[0] = longest
     m = rdata.static_parts(ents, ds, dev)
-    P = weights.nest(weights.make(fam, ents, r.seed, dev))
+    rnn = program.rnn_cell(cfg)
+    P = weights.nest(weights.make(fam, ents, r.seed, dev, rnn))
     served = torch.as_tensor(np.stack([answers[i][j] for i, j in chosen]))
     seen = [pool[i][1][j] for i, j in chosen]
     dt = "bfloat16"
@@ -179,15 +182,16 @@ def check(r, cfg, fam, ents, ds, pool, answers, dev, rng) -> None:
         else:
             q = _seq_queries(P, m, [pool[i][0][j] for i, j in chosen],
                              cfg.model.max_seq_len, ents["item"].num, dt,
-                             dev)
+                             dev, rnn)
             v, b = model.seq_items(P, m)
         gaps = rserve.score_gaps(q, v, b, seen, served, dt)
     r.check("score_gap", float(gaps.max()))
 
 
-def _seq_queries(P, m, hists, L, pad, dt, dev, block=256):
+def _seq_queries(P, m, hists, L, pad, dt, dev, cell, block=256):
     """The reference's final state after each history (left-padded to a
-    whole number of max_seq_len segments, scanned in one pass)."""
+    whole number of max_seq_len segments, scanned in one pass by the
+    recurrence of `cell`)."""
     out = []
     for s in range(0, len(hists), block):
         hs = hists[s:s + block]
@@ -199,5 +203,6 @@ def _seq_queries(P, m, hists, L, pad, dt, dev, block=256):
             mask[i, total - len(h):] = 1.0
         out.append(model.seq_queries(P, m, torch.as_tensor(inputs,
                                                            device=dev),
-                                     torch.as_tensor(mask, device=dev), dt))
+                                     torch.as_tensor(mask, device=dev), dt,
+                                     cell))
     return torch.cat(out)

@@ -70,10 +70,10 @@ def run(r) -> None:
 
     dev = r.device
     cfg = program.config(r.cell, r.seed)
-    fam = program.family(cfg)
+    fam, rnn = program.family(cfg), program.rnn_cell(cfg)
     tr = Trainer(cfg, device=dev)
     ents = rdata.entities(r.cell.config["config"])
-    w = weights.make(fam, ents, r.seed, dev)
+    w = weights.make(fam, ents, r.seed, dev, rnn)
     with torch.no_grad():
         for name, (p, _) in program.leaves(tr.state, fam,
                                            tr.sparse).items():
@@ -158,8 +158,8 @@ def run(r) -> None:
     stream = rdata.batches(rd, r.cell.config["config"], cfg.train.seed)
     batches = list(itertools.islice(stream, 2 * K))
     if r.trace:
-        _work_counts(r, fam, itertools.islice(stream, start - 2 * K,
-                                              start - 2 * K + n), n)
+        _work_counts(r, fam, rnn, itertools.islice(
+            stream, start - 2 * K, start - 2 * K + n), n)
     check(r, cfg, fam, ents, rd, batches, losses, held, sparse, dev)
 
 
@@ -171,15 +171,16 @@ def _shape(cfg, ents) -> dict:
             "user_fields": len(ents["user"].fields) if "user" in ents else 0}
 
 
-def _work_counts(r, fam, window, n: int) -> None:
+def _work_counts(r, fam, rnn, window, n: int) -> None:
     """What the window's n steps needed, for the traced run's readers:
-    the valid positions of each sequence batch and the steps' FLOPs."""
+    the valid positions of each sequence batch and the steps' FLOPs (the
+    recurrence's by its cell, `rnn`)."""
     from roofline.counts import mf_train_step_flops, seq_train_step_flops
     c = r.counts
     if fam == "seq":
         c["valid"] = [float(b["mask"].sum()) for b in window]
         c["flops"] = sum(seq_train_step_flops(v, c["S"], c["D"], c["H"],
-                                              c["item_fields"])
+                                              c["item_fields"], rnn)
                          for v in c["valid"])
     else:
         c["flops"] = n * mf_train_step_flops(
@@ -191,7 +192,7 @@ def check(r, cfg, fam, ents, rd, batches, losses, held, sparse,
     """The 2K checked steps against the reference's (see
     reference/train.py for the numbers compared)."""
     m = rdata.static_parts(ents, rd, dev)
-    p0 = weights.make(fam, ents, r.seed, dev)
+    p0 = weights.make(fam, ents, r.seed, dev, program.rnn_cell(cfg))
     prog = {"losses": losses,
             **{tag: {k: (p.to(dev), a.to(dev)) for k, (p, a) in st.items()}
                for tag, st in held.items()}}
@@ -215,6 +216,7 @@ def reference_loss(fam, cfg, ents, m, dev, rows=None):
     negatives from the run's seed. rows: a slice of each batch's rows (a
     planted fault: the loss over part of the batch)."""
     S, V = cfg.train.num_sampled, ents["item"].num
+    rnn = program.rnn_cell(cfg)
     cut = rows or slice(None)
 
     def t(b, k):
@@ -228,5 +230,5 @@ def reference_loss(fam, cfg, ents, m, dev, rows=None):
             return model.mf_loss(P, m, t(b, "user"), t(b, "pos_item"),
                                  negs, dt)
         return model.seq_loss(P, m, t(b, "inputs"), t(b, "targets"),
-                              t(b, "mask"), negs, dt)
+                              t(b, "mask"), negs, dt, rnn)
     return loss

@@ -32,6 +32,14 @@ def family(cfg) -> str:
     return "seq" if cfg.model.model == "lstm" else "mf"
 
 
+def rnn_cell(cfg) -> str | None:
+    """The recurrent cell of a sequence configuration (`model.cell`:
+    "lstm" or "gru"), None for MF. The one place the harness reads it:
+    the weights' shapes, the reference's recurrence and the FLOP counts
+    all take it from here."""
+    return cfg.model.cell if family(cfg) == "seq" else None
+
+
 def leaves(state, fam: str, sparse: bool) -> dict:
     """{reference leaf name: (param tensor, Adagrad accumulator)} of the
     program's TrainState: a sparse step's table is packed [V, 2W] (param

@@ -1,16 +1,18 @@
-"""The plain reference of both configurations: hybrid MF and the LSTM
-next-item model, forward, sampled-softmax loss and scoring, written from
-arec's published description (A-Recsys: attribute embeddings fused by a
-concat projection; TF1 sampled softmax with log-uniform negatives,
--log(S·P) correction and accidental hits removed; left-padded masked
-LSTM; per-item output bias).
+"""The plain reference of both configuration families: hybrid MF and the
+sequence next-item model (an LSTM or a GRU by `model.cell`), forward,
+sampled-softmax loss and scoring, written from arec's published
+description (A-Recsys: attribute embeddings fused by a concat projection;
+TF1 sampled softmax with log-uniform negatives, -log(S·P) correction and
+accidental hits removed; left-padded masked TF1 LSTMCell or GRUCell;
+per-item output bias).
 
 `dt` is the precision of the products that the configuration's
-`compute_dtype` governs (the sampled logits, the LSTM's input projection
-and recurrent product, the serving scores): their operands are rounded to
-it and the sums run in float32. "bfloat16" is the configuration's own;
-"float8" (e4m3, one scale per operand) is the control's. The attribute
-encode and fusion, the true logit and the cell arithmetic run in float32.
+`compute_dtype` governs (the sampled logits, the recurrence's input
+projection and recurrent products, the serving scores): their operands
+are rounded to it and the sums run in float32. "bfloat16" is the
+configuration's own; "float8" (e4m3, one scale per operand) is the
+control's. The attribute encode and fusion, the true logit and the cell
+arithmetic run in float32.
 
 Plain PyTorch; imports nothing of the program."""
 
@@ -123,7 +125,7 @@ def mf_items(P, m, block: int = 16384):
     return torch.cat(vs), torch.cat(bs)
 
 
-# ---- LSTM ----------------------------------------------------------------
+# ---- the sequence model -------------------------------------------------
 
 def lstm_hidden(P: dict, m: dict, inputs, mask, dt: str) -> torch.Tensor:
     """h after every step [B, T, H] of the masked LSTM over left-padded
@@ -149,11 +151,50 @@ def lstm_hidden(P: dict, m: dict, inputs, mask, dt: str) -> torch.Tensor:
     return torch.stack(out, 1)
 
 
-def seq_loss(P: dict, m: dict, inputs, targets, mask, negs,
-             dt: str) -> torch.Tensor:
+def gru_hidden(P: dict, m: dict, inputs, mask, dt: str) -> torch.Tensor:
+    """h after every step [B, T, H] of the masked GRU over left-padded
+    histories (a pad step leaves h as it was), as TF1's GRUCell, which
+    A-Recsys runs for `cell gru`, computes it:
+
+        r  = σ(x·W_xr + h·U_r + b_r)
+        u  = σ(x·W_xu + h·U_u + b_u)
+        n  = tanh(x·W_xn + (r ⊙ h)·U_n + b_n)
+        h' = u ⊙ h + (1 − u) ⊙ n
+
+    with one fused [D + H, 3H] matrix in gate order r | u | n (the x rows
+    first) and its bias [3H]. The reset gate scales h before the product
+    with U_n; cuDNN's GRU (and torch.nn.GRU) scale the product instead,
+    r ⊙ (h·U_n + b_hn), which is another cell. The operands of x·W,
+    h·U_{r,u} and (r ⊙ h)·U_n are rounded to `dt`; the gates run in
+    float32."""
+    x, _ = encode(P["item_in"], m["item"], m["item_slots"], inputs)
+    D = x.shape[-1]
+    w, b = P["rnn_w"], P["rnn_b"]
+    xw = mm(x, w[:D], dt) + b
+    u_ru, u_n = w[D:, :2 * D], w[D:, 2 * D:]
+    B, T = inputs.shape
+    h = torch.zeros(B, D, device=x.device)
+    out = []
+    for t in range(T):
+        hw = mm(h, u_ru, dt)
+        r = torch.sigmoid(xw[:, t, :D] + hw[:, :D])
+        u = torch.sigmoid(xw[:, t, D:2 * D] + hw[:, D:])
+        n = torch.tanh(xw[:, t, 2 * D:] + mm(r * h, u_n, dt))
+        h_new = u * h + (1.0 - u) * n
+        keep = mask[:, t:t + 1]
+        h = keep * h_new + (1.0 - keep) * h
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+HIDDEN = {"lstm": lstm_hidden, "gru": gru_hidden}
+
+
+def seq_loss(P: dict, m: dict, inputs, targets, mask, negs, dt: str,
+             cell: str) -> torch.Tensor:
     """The CE over every valid position against the untied output table
-    (its bias in column D)."""
-    h = lstm_hidden(P, m, inputs, mask, dt)
+    (its bias in column D), after the recurrence of `cell`."""
+    h = HIDDEN[cell](P, m, inputs, mask, dt)
     D = h.shape[-1]
     q = h.reshape(-1, D)
     t = targets.reshape(-1)
@@ -164,8 +205,8 @@ def seq_loss(P: dict, m: dict, inputs, targets, mask, negs,
                       negs[0], negs[1], mask.reshape(-1), m["item"].num, dt)
 
 
-def seq_queries(P, m, inputs, mask, dt):
-    return lstm_hidden(P, m, inputs, mask, dt)[:, -1]
+def seq_queries(P, m, inputs, mask, dt, cell: str):
+    return HIDDEN[cell](P, m, inputs, mask, dt)[:, -1]
 
 
 def seq_items(P, m):

@@ -6,9 +6,12 @@ import json
 import pytest
 
 import run as run_py
+from conftest import tiny_case
 from harness import bench
 
 CELLS = [w["name"] for w in bench.benchmark()["workloads"]]
+# c4's cells with `model.cell` gru: the configuration a GRU cell brings
+GRU = ["c4-train@gru", "c4-serve-online@gru"]
 
 
 def last_line(capsys):
@@ -16,9 +19,18 @@ def last_line(capsys):
     return json.loads(out.out.strip().splitlines()[-1]), out.err
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + GRU)
 @pytest.mark.parametrize("trace", [0, 1])
-def test_cell_runs_on_the_cpu(tiny_cells, capsys, cell, trace):
+def test_cell_runs_on_the_cpu(monkeypatch, cache_dir, capsys, cell, trace):
+    from roofline import counts
+    cell = tiny_case(monkeypatch, cache_dir, cell)
+    model = bench.Cell.find(cell).config["config"]["model"]
+    want_cells = {model["cell"]} if model["model"] == "lstm" else set()
+    cells = []          # the recurrent cell each sequence FLOP count got
+    for name in ("seq_train_step_flops", "seq_serve_flops"):
+        real = getattr(counts, name)
+        monkeypatch.setattr(counts, name, lambda *a, _r=real: (
+            cells.append(a[-1]), _r(*a))[1])
     rc = run_py.main(["--workload", cell, "--seed", str(2**31 + 7),
                       "--seconds", "1", "--trace", str(trace)],
                      device="cpu")
@@ -37,6 +49,7 @@ def test_cell_runs_on_the_cpu(tiny_cells, capsys, cell, trace):
         assert all(v["value"] > 0 for v in line["metrics"].values())
     else:
         assert "breakdown" in line and "busy_s" in line["device"]
+        assert set(cells) == want_cells
     names = list(line["checks"])
     tail = err.strip().splitlines()[-len(names):]
     assert [t.split(":")[0] for t in tail] == [f"check {n}" for n in names]

@@ -12,26 +12,73 @@ import torch
 
 import control
 import run as run_py
+from conftest import tiny_case
 from harness import bench
 
 TRAIN = ["xing-mf-train", "c4-train"]
 SERVE = ["xing-mf-serve-batch", "c4-serve-online"]
+# c4's cells with `model.cell` gru: the configuration a GRU cell brings
+GRU_TRAIN, GRU_SERVE = ["c4-train@gru"], ["c4-serve-online@gru"]
 
 
-@pytest.mark.parametrize("cell", TRAIN + SERVE)
-def test_the_control_fails_a_limit(tiny_cells, cell):
-    c = bench.Cell.find(cell)
-    read = (control.train_readings if cell in TRAIN
+@pytest.mark.parametrize("cell", TRAIN + SERVE + GRU_TRAIN + GRU_SERVE)
+def test_the_control_fails_a_limit(monkeypatch, cache_dir, cell):
+    name = tiny_case(monkeypatch, cache_dir, cell)
+    c = bench.Cell.find(name)
+    read = (control.train_readings if c.traffic["kind"] == "train"
             else control.serve_readings)
     got = read(c, 11, "control", torch.device("cpu"))
     assert any(v > c.limits[k] for k, v in got.items()), got
 
 
-@pytest.mark.parametrize("cell", TRAIN)
-def test_half_the_batch_fails_a_limit(tiny_cells, cell):
-    c = bench.Cell.find(cell)
+@pytest.mark.parametrize("cell", TRAIN + GRU_TRAIN)
+def test_half_the_batch_fails_a_limit(monkeypatch, cache_dir, cell):
+    name = tiny_case(monkeypatch, cache_dir, cell)
+    c = bench.Cell.find(name)
     got = control.train_readings(c, 12, "half", torch.device("cpu"))
     assert any(v > c.limits[k] for k, v in got.items()), got
+
+
+def _lstm_over_gru_weights(P, m, inputs, mask, dt):
+    """The LSTM's recurrence over a GRU's weights: the r | u | n blocks
+    read as i | f | g, the output gate's block zero."""
+    from reference import model
+    w, b = P["rnn_w"], P["rnn_b"]
+    d = w.shape[1] // 3
+    return model.lstm_hidden({**P, "rnn_w": torch.cat(
+        [w, w.new_zeros(w.shape[0], d)], 1), "rnn_b": torch.cat(
+        [b, b.new_zeros(d)])}, m, inputs, mask, dt)
+
+
+def _cudnn_gru(P, m, inputs, mask, dt):
+    """cuDNN's GRU: the reset gate scales h·U_n, not h."""
+    from reference import model
+    x, _ = model.encode(P["item_in"], m["item"], m["item_slots"], inputs)
+    D = x.shape[-1]
+    w = P["rnn_w"]
+    xw = model.mm(x, w[:D], dt) + P["rnn_b"]
+    h, out = torch.zeros(x.shape[0], D, device=x.device), []
+    for t in range(inputs.shape[1]):
+        hw = model.mm(h, w[D:], dt)
+        r = torch.sigmoid(xw[:, t, :D] + hw[:, :D])
+        u = torch.sigmoid(xw[:, t, D:2 * D] + hw[:, D:2 * D])
+        n = torch.tanh(xw[:, t, 2 * D:] + r * hw[:, 2 * D:])
+        keep = mask[:, t:t + 1]
+        h = keep * (u * h + (1.0 - u) * n) + (1.0 - keep) * h
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("other", [_lstm_over_gru_weights, _cudnn_gru])
+@pytest.mark.parametrize("cell", GRU_TRAIN + GRU_SERVE)
+def test_a_gru_held_to_another_recurrence_is_not_correct(
+        monkeypatch, cache_dir, capsys, cell, other):
+    """The program's GRU against a reference that is not TF1's GRUCell:
+    the cell chooses the recurrence, and the check tells them apart."""
+    from reference import model
+    cell = tiny_case(monkeypatch, cache_dir, cell)
+    monkeypatch.setitem(model.HIDDEN, "gru", other)
+    assert _run(capsys, cell)["correct"] is False
 
 
 def _unchanged(core):
