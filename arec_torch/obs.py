@@ -44,12 +44,20 @@ The spans, each at the layer boundary where its work happens:
 
 and the counters serve.rows_live, serve.rows: the live and padded rows of
 every served batch; serve.topk_kernel: the exact top-k calls that took the
-fused kernel pair (`train/evalu.topk_with_mask`).
+fused kernel pair (`train/evalu.topk_with_mask`, or a replay of its
+captured graph); serve.graph_replays: the served calls answered by CUDA
+graph replays, and serve.graph_captures: the input shapes captured
+(`serve.Recommender`).
+
+Inside `suspended()` a thread records nothing: a CUDA graph capture runs
+there, since what it records would count at the capture and never at a
+replay (and a span's event pair cannot be recorded into a graph).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 
@@ -93,6 +101,10 @@ class _Recorder:
         if s is None:
             s = self.local.stack = []
         return s
+
+    def held(self) -> bool:
+        """Whether this thread is inside `suspended()`."""
+        return getattr(self.local, "suspended", False)
 
     def add(self, name: str, total: float, self_s: float, parent) -> None:
         with self.lock:
@@ -199,7 +211,7 @@ class _Span:
 def span(name: str, stream=None):
     """A context manager timing its block as span `name`. stream: a device
     whose current stream's time is also taken, when it is a CUDA one."""
-    if not _profiler._is_profiler_enabled:
+    if not _profiler._is_profiler_enabled or _REC.held():
         return _OFF
     dev = None
     if stream is not None:
@@ -211,7 +223,7 @@ def span(name: str, stream=None):
 
 def count(name: str, n: int = 1) -> None:
     """Add host integer `n` to counter `name`."""
-    if not _profiler._is_profiler_enabled:
+    if not _profiler._is_profiler_enabled or _REC.held():
         return
     with _REC.lock:
         _REC.counts[name] = _REC.counts.get(name, 0) + n
@@ -234,6 +246,17 @@ def iterate(name: str, iterable):
             raise
         s.__exit__(None, None, None)
         yield item
+
+
+@contextlib.contextmanager
+def suspended():
+    """Record no span and no count on this thread inside the block."""
+    was = getattr(_REC.local, "suspended", False)
+    _REC.local.suspended = True
+    try:
+        yield
+    finally:
+        _REC.local.suspended = was
 
 
 def snapshot() -> dict:

@@ -18,6 +18,27 @@ padded rows the counters `serve.rows_live` and `serve.rows`
 follows training in place: the newest checkpoint re-restored into the live
 object, the old state freed first, so residency never doubles.
 
+On one card with the exact top-k (a CUDA device, no mesh,
+serve_recall_target >= 1) a call is answered by CUDA graph replays, so the
+host issues two replays instead of the step's ops one by one. The key is
+the batch's shapes: the segment count of a history batch (its width
+n·max_seq_len) and the seen slab's width. Every call, on any path, sizes
+that slab to a bucket: the least floor · 2^j that holds the longest seen
+row (the floor is n·max_seq_len rounded up to 32 for a history batch, a
+history being its own seen list, and 32 for MF), padded with −1, which
+names no item. The first call of a key runs `train/loop._serve_parts`'
+query encode and top-k once eagerly on a side stream, then captures each
+as its own graph (`serve.query` and `serve.topk` then time the two
+replays), all keys in one memory pool, up to MAX_GRAPHS keys; a call past
+them runs the eager step. Each key holds its batch leaves on the device
+and a pinned host mirror of them: a batch is copied into the mirror and
+sent with one non-blocking H2D copy a leaf, and the ids come back into a
+pinned buffer behind an event. `refresh()` drops every graph, since they
+hold the old weights' addresses; the next call captures anew. Elsewhere
+(the CPU, a mesh, the approximate top-k) each call runs the eager step.
+The counters `serve.graph_replays` and `serve.graph_captures` count the
+calls answered by replay and the keys captured.
+
 Weights may also be handed in as an arec-layout param tree (numpy or
 torch; see `arec_torch.bridge`); such a Recommender follows no checkpoint.
 An MF tree may be the sparse step's packed one (tables [V, 2D]); it is
@@ -47,7 +68,8 @@ from arec_torch.config import Config
 from arec_torch.dist.global_io import all_hosts_concat, shard_from_hosts
 from arec_torch.models import mf as mf_mod
 from arec_torch.train.loop import (
-    Trainer, _item_latents, _MeshServing, _serve_step, build_model,
+    Trainer, _item_latents, _MeshServing, _serve_parts, _serve_step,
+    build_model,
 )
 from arec_torch.train.sparse import get_path, table_paths, unpack_params
 
@@ -77,12 +99,88 @@ def _pad_seen(seen, n: int, width: int) -> np.ndarray:
     return out
 
 
-def _auto_width(seen, fallback: int = 1) -> int:
-    """Slab width for one call: the longest seen row, rounded up to a
-    multiple of 32."""
-    w = max((len(row) for row in seen), default=0) if seen is not None else 0
-    w = max(w, fallback, 1)
-    return -(-w // 32) * 32
+def _bucket_width(seen, floor: int) -> int:
+    """Slab width for one call: the least of floor · 2^j (j >= 0) that
+    holds the longest seen row, so that calls share a few widths."""
+    w = max((len(row) for row in seen), default=0) if seen is not None \
+        else 0
+    width = floor
+    while width < w:
+        width *= 2
+    return width
+
+
+MAX_GRAPHS = 16   # input shapes a Recommender captures; past them, eager
+
+
+def _graphed(device: torch.device, sharded: bool,
+             recall_target: float) -> bool:
+    """Whether a Recommender answers its calls by CUDA graph replays: on
+    one card (no mesh, whose gathers are collectives), with the exact
+    top-k (the fused kernels)."""
+    return device.type == "cuda" and not sharded and recall_target >= 1.0
+
+
+def _graph_key(batch: dict) -> tuple:
+    """A numpy batch's captured shape: each leaf's name, shape and dtype."""
+    return tuple((name, a.shape, a.dtype.str)
+                 for name, a in sorted(batch.items()))
+
+
+class _ServeGraph:
+    """One key's serve step as two CUDA graphs, the query encode and the
+    seen-masked top-k, over static device inputs with a pinned host
+    mirror (see the module docstring). Built from the key's first batch:
+    one eager run on a side stream, then the two captures in `pool`, with
+    the program's spans and counters suspended."""
+
+    def __init__(self, batch: dict, query, topk, params, v, b, pool):
+        self.device = v.device
+        self.host = {name: torch.from_numpy(a).pin_memory()
+                     for name, a in batch.items()}
+        self.host_np = {name: t.numpy() for name, t in self.host.items()}
+        self.dev = {name: t.to(self.device) for name, t in self.host.items()}
+        inputs = dict(self.dev)
+        seen = inputs.pop("seen")
+        # graphs capture and replay on the current device's stream
+        with torch.cuda.device(self.device), obs.suspended():
+            stream = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                topk(query(params, inputs), v, b, seen)
+            stream.wait_stream(side)
+            self.query = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.query, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.q = query(params, inputs)
+            self.topk = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.topk, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.scores, self.ids = topk(self.q, v, b, seen)
+            self.done = torch.cuda.Event()
+        self.ids_host = torch.empty(self.ids.shape, dtype=self.ids.dtype,
+                                    pin_memory=True)
+        self.ids_np = self.ids_host.numpy()
+
+    def __call__(self, batch: dict) -> np.ndarray:
+        """The [B, k] ids of one batch of the key's shapes, in a host
+        buffer that the key's next call overwrites."""
+        with torch.cuda.device(self.device):
+            with obs.span("serve.h2d"):
+                for name, a in batch.items():
+                    np.copyto(self.host_np[name], a)
+                    self.dev[name].copy_(self.host[name], non_blocking=True)
+            with obs.span("serve.query"):
+                self.query.replay()
+            with obs.span("serve.topk", stream=self.device):
+                self.topk.replay()
+            obs.count("serve.topk_kernel", 1)
+            with obs.span("serve.d2h"):
+                self.ids_host.copy_(self.ids, non_blocking=True)
+                self.done.record()
+                self.done.synchronize()
+        return self.ids_np
 
 
 class Recommender:
@@ -97,8 +195,15 @@ class Recommender:
       k: list length per request (default cfg.train.eval_topk).
       serve_batch: requests are padded to this batch size per dispatch.
       seen_width: width of the per-request seen-id slab; None sizes it per
-        call to the longest seen list, so no exclusion list is truncated.
+        call to the bucket that holds the longest seen list, so no
+        exclusion list is truncated.
       device: where to serve; None = `cuda` (raises if there is none).
+
+    On one card with the exact top-k, each call is answered by CUDA graph
+    replays of the query encode and the top-k, captured at the first call
+    of each input shape (the history batch's segment count and the seen
+    slab's bucket width; up to MAX_GRAPHS shapes, then the eager step);
+    `refresh()` drops the graphs. Elsewhere each call runs the eager step.
     """
 
     def __init__(self, cfg: Config, params=None, k: int | None = None,
@@ -150,8 +255,13 @@ class Recommender:
         with torch.inference_mode():
             self._vb = _item_latents(cfg, self.spec, self._params,
                                      self._item_dev, self._sh)
-        self._step = _serve_step(cfg, self.spec, self._item_dev,
-                                 self._user_dev, self.k, self._sh)
+        self._parts = _serve_parts(cfg, self.spec, self._item_dev,
+                                   self._user_dev, self.k, self._sh)
+        self._step = _serve_step(*self._parts)
+        self._graphs = ({} if _graphed(self.device, self._sh is not None,
+                                       cfg.train.serve_recall_target)
+                        else None)
+        self._pool = None
 
     def refresh(self) -> bool:
         """Pick up the newest checkpoint in place: re-restore, re-encode the
@@ -174,6 +284,9 @@ class Recommender:
                 f"no checkpoint under {self.cfg.train.train_dir!r}")
         if latest == self._restored_step:
             return False
+        if self._graphs is not None:      # they hold the old addresses
+            self._graphs.clear()
+            self._pool = None
         self._params = None
         self._vb = None
         try:
@@ -201,7 +314,7 @@ class Recommender:
         user_ids = np.asarray(user_ids, np.int32)
         sb = self.serve_batch
         pad_user = self._ds.num_users            # encodes to zero
-        width = self.seen_width or _auto_width(seen)
+        width = self.seen_width or _bucket_width(seen, 32)
 
         def batches():
             for s in range(0, len(user_ids), sb):
@@ -214,26 +327,51 @@ class Recommender:
         return self._run(batches())
 
     # ------------------------------------------------------------------
+    def _graph(self, batch: dict):
+        """The captured step of the batch's shapes, captured now at their
+        first call; None off the graph path and past MAX_GRAPHS keys."""
+        if self._graphs is None:
+            return None
+        key = _graph_key(batch)
+        g = self._graphs.get(key)
+        if g is None and len(self._graphs) < MAX_GRAPHS:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[key] = _ServeGraph(
+                batch, *self._parts, self._params, *self._vb, self._pool)
+            obs.count("serve.graph_captures", 1)
+        return g
+
     def _run(self, batches) -> np.ndarray:
-        """batches: iterable of (numpy batch dict, n_valid) → [N, k] ids.
+        """batches: iterable of (numpy batch dict, n_valid) → [N, k] ids,
+        by the batch's captured step where there is one, else eagerly.
         On a mesh each rank encodes its "data" slab of every batch, and the
         slabs' lists are gathered back over "data"."""
         ids_out = []
         v, b = self._vb
         sh = self._sh
+        replayed = False
         with torch.inference_mode():
             for batch, n_valid in obs.iterate("serve.batch", batches):
                 obs.count("serve.rows_live", n_valid)
                 obs.count("serve.rows", self.serve_batch)
-                with obs.span("serve.h2d"):
-                    tb = shard_from_hosts(
-                        batch, None if sh is None else sh.mesh, self.device)
-                seen = tb.pop("seen")
-                _, ids = self._step(self._params, v, b, tb, seen)
-                with obs.span("serve.d2h"):
-                    ids = (ids.cpu().numpy() if sh is None else
-                           all_hosts_concat(ids, sh.data_group))
+                graph = self._graph(batch)
+                if graph is not None:
+                    ids = graph(batch)
+                    replayed = True
+                else:
+                    with obs.span("serve.h2d"):
+                        tb = shard_from_hosts(
+                            batch, None if sh is None else sh.mesh,
+                            self.device)
+                    seen = tb.pop("seen")
+                    _, ids = self._step(self._params, v, b, tb, seen)
+                    with obs.span("serve.d2h"):
+                        ids = (ids.cpu().numpy() if sh is None else
+                               all_hosts_concat(ids, sh.data_group))
                 ids_out.append(ids[:n_valid].astype(np.int32))
+        if replayed:
+            obs.count("serve.graph_replays", 1)
         if not ids_out:                      # empty request list
             return np.zeros((0, self.k), np.int32)
         return np.concatenate(ids_out, axis=0)
@@ -252,7 +390,7 @@ class Recommender:
         if seen_from_history and seen is None:
             seen = (histories if self.seen_width is None
                     else [list(h)[-self.seen_width:] for h in histories])
-        width = self.seen_width or _auto_width(seen)
+        width = self.seen_width or _bucket_width(seen, -(-total // 32) * 32)
         for s in range(0, len(histories), sb):
             chunk = histories[s:s + sb]
             n = len(chunk)

@@ -329,12 +329,14 @@ def _query_fn(spec, params, item_dev, user_dev, batch, sh=None):
         lookup_fn=lks.get("item", dense_lookup), lookup_fns=lks or None)
 
 
-def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
-    """Per-batch serving step: queries → seen-masked top-k, exact or, with
-    serve_recall_target < 1, approximate. Like arec's single-device step
-    it passes no compute dtype to the top-k, so the scores take bf16
-    operands even when the model computes in f32; on a mesh it is arec's
-    sharded top-k in the model's compute dtype, over this rank's slab."""
+def _serve_parts(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
+    """The serving step's two bare parts, with no span around them:
+    query(params, batch) -> q, and topk(q, v, b, seen) -> (scores, ids),
+    the seen-masked top-k, exact or, with serve_recall_target < 1,
+    approximate. Like arec's single-device step it passes no compute
+    dtype to the top-k, so the scores take bf16 operands even when the
+    model computes in f32; on a mesh it is arec's sharded top-k in the
+    model's compute dtype, over this rank's slab."""
     target = cfg.train.serve_recall_target
     mem = cfg.train.serve_score_mem_mb
     if sh is None:
@@ -344,9 +346,19 @@ def _serve_step(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
         topk = make_sharded_topk(sh.mesh, k=k, compute_dtype=spec.dtype,
                                  recall_target=target, score_mem_mb=mem)
 
+    def query(params, batch):
+        return _query_fn(spec, params, item_dev, user_dev, batch, sh)
+    return query, topk
+
+
+def _serve_step(query, topk):
+    """Per-batch serving step: `_serve_parts`' query encode and top-k, in
+    the spans `serve.query` and `serve.topk`. Those two bare parts are
+    what `serve.Recommender` captures as CUDA graphs on one card; this
+    eager step serves everywhere else, and `recommend()`."""
     def step(params, v, b, batch, seen):
         with obs.span("serve.query"):
-            q = _query_fn(spec, params, item_dev, user_dev, batch, sh)
+            q = query(params, batch)
         with obs.span("serve.topk", stream=q.device):
             return topk(q, v, b, seen)
     return step
@@ -617,8 +629,8 @@ class Trainer:
         k = k or t.eval_topk
         params = self._eval_params()
         v, b = self._item_latents(params)
-        step = _serve_step(self.cfg, self.spec, self.item_dev, self.user_dev,
-                           k, self.sh)
+        step = _serve_step(*_serve_parts(self.cfg, self.spec, self.item_dev,
+                                         self.user_dev, k, self.sh))
         rows = []
         L = self.spec.pack_len if self.is_seq else 0
         for batch in eval_batches(self.ds, t.eval_batch_size,

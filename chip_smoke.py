@@ -28,8 +28,10 @@
    H = 128, L = 50, attribute fusion) at the XING-cardinality synthetic
    twin's item vocabulary (1.3M items, deg-12 tags over 4096) with seeded
    random weights, through `Recommender.from_histories` and the request
-   loop, counting kernel launches on that run, and checks the answers and
-   the query states against the plain scan.
+   loop, each call after its shape's first a CUDA graph replay: counts
+   the replays' device launches by kernel symbol in a profiler trace, and
+   checks the answers, the ids against the eager step's on the same
+   batch and the query states against the plain scan.
 4. Trains c4 on the same twin: `seq_batches` → `make_train_step` (Adagrad,
    dense updates) for one warm-up and 20 counted steps, printing loss,
    grad_norm, step time, examples/s, launches per kernel and a profile of
@@ -42,7 +44,8 @@
 6. The MF model of configs/syn_xing_full.json at its own width (dim 128,
    1.3M items, 1.5M users, packed sparse-Adagrad tables) on one card:
    serves 256 users through `Recommender.for_users` and 3 request-loop
-   lines, checking the answers against an independent f32 top-k; then
+   lines as graph replays (device launches by symbol), checking the
+   answers against the eager step's and an independent f32 top-k; then
    trains it with the sparse touched-rows step (`mf_batches` →
    `make_sparse_train_step`, whose table write-back is the row-scatter
    kernel) for one warm-up and 20 counted steps, with a profile of one
@@ -962,15 +965,20 @@ KERNEL_SYMBOLS = {
     "sampled_ce_bwd": r"\bsampled_ce_bwd_cols_(mma_)?kernel\b",
     "row_scatter": r"::scatter<",
 }
+# and those of serving: the fused top-k's two kernels, each launched twice
+# by a call of `mips_topk` (sample and select passes; floor and final)
+SERVE_SYMBOLS = {**KERNEL_SYMBOLS,
+                 "mips_select": r"\bmips_select_kernel\b",
+                 "mips_union": r"\bmips_union_kernel\b"}
 
 
-def kernel_counts(events):
+def kernel_counts(events, symbols=KERNEL_SYMBOLS):
     """{kernel name: device launches} over (symbol, count) pairs of a
-    profiler's kernel events, by KERNEL_SYMBOLS."""
+    profiler's kernel events, by `symbols`."""
     import re
-    out = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    out = dict.fromkeys(symbols, 0)
     for symbol, n in events:
-        for name, pat in KERNEL_SYMBOLS.items():
+        for name, pat in symbols.items():
             if re.search(pat, symbol):
                 out[name] += n
     return out
@@ -1015,7 +1023,8 @@ def device_breakdown(what, fn):
     """Run fn() once under torch.profiler and print device busy time (the
     union of the device's intervals), the idle share of the wall time and
     the top kernels by device time; returns (busy ms, wall ms, the number
-    of device activities: kernels, copies, fills)."""
+    of device activities: kernels, copies, fills, {kernel name: device
+    launches} by SERVE_SYMBOLS)."""
     _, dev, wall_ms, busy_ms = traced(fn)
     dev_us = {key: us for key, (_, us) in dev.items()}
     count = sum(n for n, _ in dev.values())
@@ -1032,7 +1041,17 @@ def device_breakdown(what, fn):
             f"{rs_ms / busy_ms:.4f} of device busy")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / 1e3:9.3f} ms  {key[:100]}")
-    return busy_ms, wall_ms, count
+    return busy_ms, wall_ms, count, kernel_counts(
+        ((key, n) for key, (n, _) in dev.items()), SERVE_SYMBOLS)
+
+
+def served_counts(fn):
+    """fn() under torch.profiler: (its result, {kernel name: device
+    launches} by SERVE_SYMBOLS). A served call that replays its captured
+    step runs no kernel wrapper, so its launches are counted only here."""
+    result, dev, _, _ = traced(fn)
+    return result, kernel_counts(((key, n) for key, (n, _) in dev.items()),
+                                 SERVE_SYMBOLS)
 
 
 def scan_counters(cell):
@@ -1050,8 +1069,10 @@ def scan_counters(cell):
 
 def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
     """c4 (with the recurrent cell set to `cell`) at the XING twin's
-    vocabulary, served through the port's entry points; returns the scan
-    kernel's launches of the served run."""
+    vocabulary, served through the port's entry points: each call a CUDA
+    graph replay after its shape's first, its ids equal to the eager
+    step's; returns the scan kernel's device launches of the replayed
+    calls (profiler)."""
     import numpy as np
     import torch
     from arec_torch.models.seq import SeqSpec, init_seq
@@ -1094,30 +1115,44 @@ def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
     seen[6] = rng.integers(0, V, 40).tolist()        # an explicit seen list
     segments = math.ceil(max(lengths) / L)
 
-    t0 = time.perf_counter()
-    rec.from_histories(hists, seen=seen)             # first call: warm-up
-    first_s = time.perf_counter() - t0
+    lines = [",".join(map(str, rng.integers(0, V, n).tolist()))
+             for n in (3, 40, 17)]
 
-    for f in (fwd, *others.values()):                # ---- the main path
+    def loop():
+        out = io.StringIO()
+        _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
+        return out.getvalue()
+
+    t0 = time.perf_counter()
+    rec.from_histories(hists, seen=seen)             # first call: capture
+    first_s = time.perf_counter() - t0
+    loop()                                           # the lines' capture
+    assert len(rec._graphs) == 2, list(rec._graphs)  # one-card exact path
+
+    # ---- the main path: every call a replay, which runs no wrapper, so
+    # its device launches are counted by symbol in a profiler trace
+    for f in (*scans.values(), *others.values()):
         f.launches = 0
     t0 = time.perf_counter()
     ids = rec.from_histories(hists, seen=seen)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    batch_launches = fwd.launches
-    lines = [",".join(map(str, rng.integers(0, V, n).tolist()))
-             for n in (3, 40, 17)]
-    out = io.StringIO()
-    _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
-    launches = fwd.launches                          # ---- read just after
-    assert not any(f.launches for f in others.values()), others
+    traced_ids, batch_launches = served_counts(
+        lambda: rec.from_histories(hists, seen=seen))
+    answers, loop_launches = served_counts(loop)
+    wrapped = {n: f.launches for n, f in (*scans.items(), *others.items())}
+    assert not any(wrapped.values()), wrapped        # ---- read just after
+    assert len(rec._graphs) == 2, list(rec._graphs)
 
     assert ids.shape == (len(hists), 30), ids.shape
+    assert np.array_equal(traced_ids, ids)
     assert ((ids >= 0) & (ids < V)).all()
     for row, s in zip(ids, seen):
         assert not set(row.tolist()) & set(s), "a seen id was served"
-    assert batch_launches == spec.num_layers * segments, (
+    want = dict.fromkeys(SERVE_SYMBOLS, 0)
+    assert batch_launches == {**want, fwd_name: spec.num_layers * segments,
+                              "mips_select": 2, "mips_union": 2}, (
         batch_launches, spec.num_layers, segments)
-    answers = out.getvalue().strip().split("\n")
+    answers = answers.strip().split("\n")
     assert len(answers) == 3, answers
     for line, ans in zip(lines, answers):
         first, got = ans.split("\t")
@@ -1125,27 +1160,37 @@ def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
         assert first == line and len(got) == 30
         assert all(0 <= i < V for i in got)
         assert not set(got) & {int(x) for x in line.split(",")}
-    assert launches == batch_launches + 3 * spec.num_layers, launches
+    assert loop_launches == {**want, fwd_name: 3 * spec.num_layers,
+                             "mips_select": 6, "mips_union": 6}, (
+        loop_launches)
+    launches = batch_launches[fwd_name] + loop_launches[fwd_name]
 
-    # the same batch's query states through the plain scan on the card
-    batch, _ = next(rec._history_batches(hists, seen=seen))
-    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
-          if k != "seen"}
+    # the same batch through the eager step (its ids bit for bit), and its
+    # query states through the plain scan on the card
+    batch, n_valid = next(rec._history_batches(hists, seen=seen))
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    seen_dev = tb.pop("seen")
     plain_spec = dataclasses.replace(spec, use_pallas_scan=False)
     with torch.inference_mode():
+        _, eager = rec._step(rec._params, *rec._vb, tb, seen_dev)
         q_kernel = _query_fn(spec, rec._params, rec._item_dev, None, tb)
         q_plain = _query_fn(plain_spec, rec._params, rec._item_dev, None, tb)
+    assert np.array_equal(eager[:n_valid].cpu().numpy(), ids), (
+        "replayed ids != the eager step's")
     assert torch.isfinite(q_kernel).all()
     torch.testing.assert_close(q_kernel, q_plain, **TOL["bfloat16"])
     q_err = float((q_kernel - q_plain).abs().max())
     log(f"served {len(hists)} histories (longest {max(lengths)} = "
-        f"{segments} segments) + {len(lines)} loop lines; query states vs "
-        f"plain scan on the card: max abs err {q_err:.3e} "
-        f"(tolerance {TOL['bfloat16']})")
+        f"{segments} segments) + {len(lines)} loop lines as graph replays "
+        f"({len(rec._graphs)} shapes captured), ids equal to the eager "
+        f"step's; query states vs plain scan on the card: max abs err "
+        f"{q_err:.3e} (tolerance {TOL['bfloat16']})")
     log(f"startup {startup_s:.3f} s (from the prepared cache), item-latent "
-        f"encode {enc_ms:.3f} ms, first batch {first_s:.3f} s, batch of "
-        f"{len(hists)} requests padded to 256: {batch_ms:.3f} ms; "
-        f"{fwd_name} launches {launches}")
+        f"encode {enc_ms:.3f} ms, first batch (its capture) {first_s:.3f} "
+        f"s, batch of {len(hists)} requests padded to 256: {batch_ms:.3f} "
+        f"ms; device launches (profiler) of the batch "
+        f"{ {n: c for n, c in batch_launches.items() if c} }, of the lines "
+        f"{ {n: c for n, c in loop_launches.items() if c} }")
 
     # where one served batch's time goes: device time by kernel name
     device_breakdown(f"one served batch ({cell})",
@@ -1666,16 +1711,18 @@ def all_counters():
 def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     """syn_xing_full's MF model served through `Recommender.for_users`
     from a packed sparse-Adagrad param tree (seeded random weights): 256
-    users with their train items as seen lists, then 3 request-loop lines;
-    the answers against an independent f32 top-k of the same scores; a
-    profile of one batch. MF serving runs one kernel of the port, the
-    fused top-k (once a batch and once a loop line); every other count
-    stays 0."""
+    users with their train items as seen lists, then 3 request-loop lines,
+    each call a CUDA graph replay after its shape's first; the answers
+    against the eager step's, bit for bit, and an independent f32 top-k of
+    the same scores; a profile of one batch. MF serving runs one kernel of
+    the port, the fused top-k (once a batch and once a loop line, counted
+    by symbol in a profiler trace); every other count stays 0."""
     import numpy as np
     import torch
     from arec_torch.kernels import mips_topk as tmk
     from arec_torch.models.mf import MFSpec, init_mf
-    from arec_torch.serve import Recommender, _serve_loop
+    from arec_torch.serve import (Recommender, _bucket_width, _pad_seen,
+                                  _serve_loop)
     from arec_torch.train.loop import _query_fn
     from arec_torch.train.sparse import pack_tables, table_paths
 
@@ -1706,31 +1753,50 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     users = rng.choice(np.flatnonzero(ds.seen_lengths > 0), 256,
                        replace=False).astype(np.int32)
     seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist() for u in users]
-    t0 = time.perf_counter()
-    rec.for_users(users, seen=seen)                  # first call: warm-up
-    first_s = time.perf_counter() - t0
+    lines = [f"{users[0]}\t{','.join(map(str, seen[0][:5]))}",
+             f"{users[1]}", f"{users[2]}\t{','.join(map(str, seen[2]))}"]
 
+    def loop():
+        out = io.StringIO()
+        _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
+        return out.getvalue()
+
+    t0 = time.perf_counter()
+    rec.for_users(users, seen=seen)                  # first call: capture
+    first_s = time.perf_counter() - t0
+    loop()                                           # the lines' captures
+    captured = len(rec._graphs)
+
+    # ---- the main path: every call a replay, which runs no wrapper, so
+    # its device launches are counted by symbol in a profiler trace
     counters = all_counters()
-    for f in (*counters.values(), tmk.mips_topk):    # ---- the main path
+    for f in (*counters.values(), tmk.mips_topk):
         f.launches = 0
     t0 = time.perf_counter()
     ids = rec.for_users(users, seen=seen)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    lines = [f"{users[0]}\t{','.join(map(str, seen[0][:5]))}",
-             f"{users[1]}", f"{users[2]}\t{','.join(map(str, seen[2]))}"]
-    out = io.StringIO()
-    _serve_loop(rec, io.StringIO("\n".join(lines) + "\n!quit\n"), out)
-    launches = {k: f.launches for k, f in counters.items()}
-    topk_launches = tmk.mips_topk.launches         # ---- read just after
-    assert not any(launches.values()), launches
-    assert topk_launches == 1 + len(lines), topk_launches
+    traced_ids, batch_launches = served_counts(
+        lambda: rec.for_users(users, seen=seen))
+    answers, loop_launches = served_counts(loop)
+    wrapped = {k: f.launches for k, f in counters.items()}
+    wrapped["mips_topk"] = tmk.mips_topk.launches    # ---- read just after
+    assert not any(wrapped.values()), wrapped
+    assert len(rec._graphs) == captured, (captured, list(rec._graphs))
+    want = dict.fromkeys(SERVE_SYMBOLS, 0)
+    assert batch_launches == {**want, "mips_select": 2, "mips_union": 2}, (
+        batch_launches)
+    n = len(lines)
+    assert loop_launches == {**want, "mips_select": 2 * n,
+                             "mips_union": 2 * n}, loop_launches
+    topk_launches = 1 + n                           # calls of the fused top-k
 
     V, k = spec.item.schema.num_entities, rec.k
     assert ids.shape == (256, k), ids.shape
+    assert np.array_equal(traced_ids, ids)
     for row, s in zip(ids, seen):
         assert len(set(row.tolist())) == k and ((row >= 0) & (row < V)).all()
         assert not set(row.tolist()) & set(s), "a seen id was served"
-    answers = out.getvalue().strip().split("\n")
+    answers = answers.strip().split("\n")
     assert len(answers) == 3, answers
     for line, ans, s in zip(lines, answers,
                             (seen[0][:5], [], seen[2])):
@@ -1739,9 +1805,17 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
         assert first == line.split("\t")[0] and len(set(got)) == k
         assert not set(got) & set(s)
 
+    # the same batch through the eager step: its ids bit for bit
+    tb = {"user": torch.from_numpy(users).to(dev)}
+    seen_dev = torch.from_numpy(_pad_seen(seen, len(users),
+                                          _bucket_width(seen, 32))).to(dev)
+    with torch.inference_mode():
+        _, eager = rec._step(rec._params, *rec._vb, dict(tb), seen_dev)
+    assert np.array_equal(eager.cpu().numpy(), ids), (
+        "replayed ids != the eager step's")
+
     # an independent f32 top-k of the same scores: one product of the
     # rounded operands the serving top-k multiplies, seen ids set to -inf
-    tb = {"user": torch.from_numpy(users).to(dev)}
     with torch.inference_mode():
         q = _query_fn(spec, rec._params, rec._item_dev, rec._user_dev, tb)
         v, b = rec._vb
@@ -1758,14 +1832,17 @@ def mf_serve_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES):
     tol = 1e-5 * float(ref_vals.abs().max()) + 1e-5
     assert gap <= tol, (gap, tol)
     log(f"served {len(users)} users (seen lists of up to "
-        f"{max(map(len, seen))} train items) + {len(lines)} loop lines: "
-        f"k={k} distinct unseen ids each; served scores vs an independent "
-        f"f32 top-k: max |Δ| {gap:.3e} (tolerance {tol:.3e}); the fused "
-        f"top-k launched {topk_launches} times, no other kernel "
-        f"({launches})")
+        f"{max(map(len, seen))} train items) + {len(lines)} loop lines as "
+        f"graph replays ({captured} shapes captured): k={k} distinct unseen "
+        f"ids each, equal to the eager step's; served scores vs an "
+        f"independent f32 top-k: max |Δ| {gap:.3e} (tolerance {tol:.3e}); "
+        f"device launches (profiler) of the batch "
+        f"{ {n: c for n, c in batch_launches.items() if c} }, of the lines "
+        f"{ {n: c for n, c in loop_launches.items() if c} }: the fused "
+        f"top-k {topk_launches} times, no other kernel of the port")
     log(f"startup {startup_s:.3f} s (from the prepared cache, item "
-        f"latents of {V} items included), first batch {first_s:.3f} s, "
-        f"batch of 256 users: {batch_ms:.3f} ms")
+        f"latents of {V} items included), first batch (its capture) "
+        f"{first_s:.3f} s, batch of 256 users: {batch_ms:.3f} ms")
     device_breakdown("one served MF batch",
                      lambda: rec.for_users(users, seen=seen))
     return topk_launches
@@ -2131,7 +2208,7 @@ def dispatch_check(what, dev, state, core, batches, k, decay, expect,
         walls[kind].append((time.perf_counter() - t0) / (reps * k) * 1e3)
     prof = {}
     for kind, fn in (("eager", run_eager), ("graph", run_graph)):
-        busy, wall, n = device_breakdown(
+        busy, wall, n, _ = device_breakdown(
             f"{what}: {k} steps, "
             f"{'eager' if kind == 'eager' else 'one replay'}",
             lambda fn=fn, lo=lo: fn(lo))
@@ -2630,13 +2707,13 @@ def trainer_phase(dev, sets=MF_SETS, cuts=MF_CUTS, shapes=MF_SHAPES,
         log(f"    --recommend --out: {n_rows} rows (every eval user) in "
             f"{rec_s:.2f} s (restore included); {result}")
         # ---- (e) the step-64 checkpoint on syn_xing_full's own mesh ------
-        from arec_torch.serve import _auto_width, _pad_seen
+        from arec_torch.serve import _bucket_width, _pad_seen
         mesh["mf"], per_rank["mf"] = mesh_serve(
             "(e) syn_xing_full's MF from the step-64 checkpoint", dev,
             root, mf_argv(mf_dir, 64), MESH_MF,
             {"users": users, "seen": seen, "lines": lines}, one_mf,
             [({"user": users, "seen": _pad_seen(seen, len(users),
-                                                _auto_width(seen))},
+                                                _bucket_width(seen, 32))},
               len(users))], fresh)
         del one_mf
         shutil.rmtree(mf_dir)
@@ -3865,18 +3942,19 @@ APPROX_TARGET = 0.95
 APPROX_MIN_OVERLAP = 0.90     # MF at V = 1.3M, seeded random weights
 
 
-def serve_compare(what, make, call, seen, reps=5):
+def serve_compare(what, make, call, seen, width, reps=5):
     """One request batch served by the exact and the approximate top-k
-    (`make(target)` builds the Recommender, `call(rec)` serves the batch):
-    batch latency (median host ms of `reps` synchronised calls), device
-    busy, the approximate path's (R, l) and the mean top-k overlap with
-    the exact lists. No list may hold a seen id. Returns the overlap."""
+    (`make(target)` builds the Recommender, `call(rec)` serves the batch,
+    with a seen slab `width` wide): batch latency (median host ms of
+    `reps` synchronised calls), device busy, the approximate path's (R, l)
+    and the mean top-k overlap with the exact lists. No list may hold a
+    seen id. Returns (the overlap, {target: the device launches of one
+    call by SERVE_SYMBOLS})."""
     import numpy as np
     import torch
     from arec_torch.retrieval.mips import approx_reduction_size
-    from arec_torch.serve import _auto_width
 
-    out = {}
+    out, launched = {}, {}
     for target in (1.0, APPROX_TARGET):
         rec = make(target)
         ids = call(rec)                               # warm-up
@@ -3885,15 +3963,14 @@ def serve_compare(what, make, call, seen, reps=5):
             t0 = time.perf_counter()
             ids = call(rec)
             ms.append((time.perf_counter() - t0) * 1e3)
-        busy, _, _ = device_breakdown(f"{what}, recall_target {target}",
-                                   lambda: call(rec))
+        busy, _, _, launched[target] = device_breakdown(
+            f"{what}, recall_target {target}", lambda: call(rec))
         for row, s in zip(ids, seen):
             assert len(set(row.tolist())) == rec.k and (row >= 0).all()
             assert not set(row.tolist()) & set(s), "a seen id was served"
         out[target] = (ids, float(np.median(ms)), busy)
         V, k = rec._vb[0].shape[0], rec.k
         del rec
-    width = _auto_width(seen)
     r, l = approx_reduction_size(V, k + width, APPROX_TARGET)
     overlap = approx_overlap(out[1.0][0], out[APPROX_TARGET][0])
     log(f"(d) {what}: V {V}, k {k}, seen slab {width} -> "
@@ -3904,7 +3981,7 @@ def serve_compare(what, make, call, seen, reps=5):
         f"{out[APPROX_TARGET][2]:.3f} ms, R {r}, l {l}; mean top-{k} "
         f"overlap with the exact lists {overlap:.4f}")
     torch.cuda.synchronize()
-    return overlap
+    return overlap, launched
 
 
 def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
@@ -3914,12 +3991,13 @@ def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
     1,304,126) and c4's LSTM serving batch (8 requests padded to 256),
     each with serve_recall_target 1.0 and 0.95, seeded random weights.
     The MF overlap must reach APPROX_MIN_OVERLAP. Returns the LSTM
-    forward's launches."""
+    forward's device launches in the two traced c4 calls (profiler: the
+    exact one is a graph replay, which runs no wrapper)."""
     import numpy as np
     import torch
     from arec_torch.models.mf import MFSpec, init_mf
     from arec_torch.models.seq import SeqSpec, init_seq
-    from arec_torch.serve import Recommender
+    from arec_torch.serve import Recommender, _bucket_width
     from arec_torch.train.sparse import pack_tables, table_paths
 
     def with_target(cfg, target):
@@ -3935,31 +4013,34 @@ def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
     users = rng.choice(np.flatnonzero(ds.seen_lengths > 0), 256,
                        replace=False).astype(np.int32)
     seen = [ds.seen_items[u][ds.seen_items[u] >= 0].tolist() for u in users]
-    overlap = serve_compare(
+    overlap, _ = serve_compare(
         "MF for_users, 256 users",
         lambda t: Recommender(with_target(cfg, t), params, serve_batch=256,
                               device=dev),
-        lambda rec: rec.for_users(users, seen=seen), seen)
+        lambda rec: rec.for_users(users, seen=seen), seen,
+        _bucket_width(seen, 32))
     assert overlap >= APPROX_MIN_OVERLAP, (overlap, APPROX_MIN_OVERLAP)
     del params
     free()
 
-    fwd = scan_counters("lstm")[0]["lstm_scan_fwd"]
     cfg, ds, _ = load_c4(twin, c4_cuts)
     spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
     params = init_seq(torch.Generator(device=dev).manual_seed(0), spec)
     rng = np.random.default_rng(1)
     hists = [rng.integers(0, spec.vocab, n).tolist()
              for n in (5, 12, 30, 49, 50, 120, 20, 1)]
-    fwd.launches = 0                                 # ---- the main path
-    serve_compare(
+    L = spec.max_seq_len
+    segments = math.ceil(max(map(len, hists)) / L)
+    _, launched = serve_compare(
         "c4 LSTM from_histories, 8 requests padded to 256",
         lambda t: Recommender(with_target(cfg, t), params, serve_batch=256,
                               device=dev),
-        lambda rec: rec.from_histories(hists), hists)
-    launches = fwd.launches                          # ---- read just after
-    assert launches > 0
-    return {"lstm_scan_fwd": launches}
+        lambda rec: rec.from_histories(hists), hists,
+        _bucket_width(hists, -(-segments * L // 32) * 32))
+    for target, n in launched.items():               # one call each
+        assert n["lstm_scan_fwd"] == spec.num_layers * segments, (target, n)
+    return {"lstm_scan_fwd": sum(n["lstm_scan_fwd"]
+                                 for n in launched.values())}
 
 
 def raw_data_phase(dev, root=None, xing=XING_RAW, ml1m=ML1M_RAW, steps=16,

@@ -208,7 +208,7 @@ def _scores_of(rec_one, req):
                                 rec_one._user_dev,
                                 torch.from_numpy(req["users"])).numpy()
         seen = tserve._pad_seen(req["seen"], len(req["users"]),
-                                tserve._auto_width(req["seen"]))
+                                tserve._bucket_width(req["seen"], 32))
     else:
         from arec_torch.models.seq import seq_final_state_full
         qs, seens = [], []

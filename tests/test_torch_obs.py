@@ -49,6 +49,55 @@ def test_off_records_nothing_and_shares_one_span():
     assert obs.snapshot() == {"spans": {}, "counts": {}}
 
 
+def test_suspended_records_nothing_on_its_thread():
+    """Inside `suspended()` (a CUDA graph capture's block) this thread
+    records no span and no count, nested or not, while another thread
+    still records; on leaving it, recording resumes."""
+    def other():
+        obs.count("other", 1)
+
+    with traced():
+        with obs.span("kept"):
+            with obs.suspended():
+                with obs.span("dropped", stream="cpu"):
+                    obs.count("dropped", 1)
+                with obs.suspended():
+                    obs.count("dropped", 1)
+                obs.count("dropped", 1)
+                t = threading.Thread(target=other)
+                t.start()
+                t.join(timeout=30)
+                assert not t.is_alive()
+            obs.count("kept", 1)
+    snap = obs.snapshot()
+    assert set(snap["spans"]) == {"kept"}
+    assert snap["counts"] == {"kept": 1, "other": 1}
+
+
+def test_graph_share_reader():
+    """`graph_share.serve` (benchmark/metrics): replays over the window's
+    calls in %, None without the counter or the calls."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics",
+        "graph_share.serve.py")
+    spec = importlib.util.spec_from_file_location("graph_share", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    class Run:
+        counts = {"calls": 8}
+
+    assert mod.read(Run()) is None               # no counter: the parent
+    with traced():
+        for _ in range(6):
+            obs.count("serve.graph_replays", 1)
+    assert mod.read(Run()) == pytest.approx(75.0)
+    Run.counts = {}
+    assert mod.read(Run()) is None
+
+
 def test_nested_spans_counters_and_threads_under_a_profiler():
     done = threading.Event()
 

@@ -187,8 +187,8 @@ def _mf_scores(trec, users, seen):
         q = _query_fn(trec.spec, trec._params, trec._item_dev,
                              trec._user_dev, tb).numpy()
     v, b = (x.float().numpy() for x in trec._vb)
-    return ref_scores(q, v, b, tserve._pad_seen(seen, len(users),
-                                                tserve._auto_width(seen)))
+    return ref_scores(q, v, b, tserve._pad_seen(
+        seen, len(users), tserve._bucket_width(seen, 32)))
 
 
 @pytest.mark.parametrize("with_seen", [True, False])
@@ -469,3 +469,104 @@ def test_serve_main_from_a_checkpoint(tmp_path):
     assert lines[2] == "!ok step 16"
     assert lines[3].startswith("!err ValueError")
     assert len(lines) == 4
+
+
+# ---------------------------------------------------------------------------
+# The graph path's shapes: on one card a call replays the captured step of
+# its key; these hold, on the CPU, the widths and keys it takes and when it
+# engages (its replays are held to the eager path in
+# tests/test_torch_serve_graph_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _by_32(monkeypatch):
+    """Seen slabs sized as before the buckets: the longest seen row
+    rounded up to a multiple of 32."""
+    def width(seen, floor):
+        w = max((len(row) for row in seen or ()), default=0)
+        return -(-max(w, 1) // 32) * 32
+    monkeypatch.setattr(tserve, "_bucket_width", width)
+
+
+def _seen_widths(rec, histories, **kw):
+    return {b["seen"].shape[1] for b, _ in rec._history_batches(histories,
+                                                                **kw)}
+
+
+@pytest.mark.parametrize("segments", [1, 2])
+def test_bucket_width_serves_todays_ids_seq(served, segments, monkeypatch):
+    """The seen slab at its bucket width (n·L rounded up to 32) holds the
+    same lists as at the longest row rounded up to 32: the extra −1 name
+    no item. L = 40 so that the two widths differ: 1 segment of ≤ 32
+    items → 64 against 32, 2 segments of 41–64 → 96 against 64."""
+    _, trec, hists = served
+    cfg = dataclasses.replace(trec.cfg, model=dataclasses.replace(
+        trec.cfg.model, max_seq_len=40))
+    rec = tserve.Recommender(cfg, trec._params, serve_batch=SERVE_BATCH,
+                             device="cpu")
+    assert rec._graphs is None                 # the CPU: eager
+    lengths = (20, 32) if segments == 1 else (41, 64)
+    reqs = [(h * 64)[:lengths[i % 2] - i % 3] for i, h in
+            enumerate(hists[:24]) if h]
+    got, got_w = rec.from_histories(reqs), _seen_widths(rec, reqs)
+    _by_32(monkeypatch)
+    want, want_w = rec.from_histories(reqs), _seen_widths(rec, reqs)
+    assert want_w == {32 * segments} and got_w == {32 + 32 * segments}
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bucket_width_serves_todays_ids_mf(served_mf, monkeypatch):
+    """MF: seen lists of 65–70 ids take a slab of 128 (their bucket) in
+    place of 96 (rounded up to 32); the lists are the same."""
+    _, trec, _, users, seen = served_mf
+    assert trec._graphs is None
+    rng = np.random.default_rng(0)
+    long_seen = [s + rng.integers(0, 250, 65 + i % 6 - len(s)).tolist()
+                 for i, s in enumerate(seen)]
+    assert tserve._bucket_width(long_seen, 32) == 128
+    got = trec.for_users(users, seen=long_seen)
+    _by_32(monkeypatch)
+    assert tserve._bucket_width(long_seen, 32) == 96
+    np.testing.assert_array_equal(trec.for_users(users, seen=long_seen),
+                                  got)
+
+
+@pytest.mark.parametrize("device, sharded, target, graphed", [
+    ("cpu", False, 1.0, False),
+    ("cuda", True, 1.0, False),       # a mesh: its gathers are collectives
+    ("cuda", False, 0.95, False),     # the approximate top-k
+    ("cuda", False, 1.0, True),
+])
+def test_graph_path_only_on_one_card_with_the_exact_topk(device, sharded,
+                                                         target, graphed):
+    assert tserve._graphed(torch.device(device), sharded, target) is graphed
+
+
+@pytest.mark.parametrize("longest, floor, width", [
+    (0, 32, 32), (1, 32, 32), (32, 32, 32), (33, 32, 64), (64, 32, 64),
+    (65, 32, 128), (200, 32, 256), (50, 64, 64), (100, 128, 128),
+    (129, 128, 256),
+])
+def test_seen_width_rounds_up_to_its_bucket(longest, floor, width):
+    assert tserve._bucket_width([[1] * longest, [2]], floor) == width
+
+
+def test_history_key_follows_its_segment_count(served):
+    """A history batch's key is its segment count and its bucket width:
+    one key for every call of n segments (L = 8, so n·L rounds up to 32),
+    whatever the lengths inside."""
+    _, trec, hists = served
+    L = trec.spec.max_seq_len
+
+    def keys(lengths):
+        reqs = [(hists[0] * 64)[:n] for n in lengths]
+        return {tserve._graph_key(b) for b, _ in trec._history_batches(reqs)}
+
+    one, two = keys([1, L]), keys([L + 1, 2 * L])
+    assert len(one) == len(two) == 1 and one != two
+    assert keys([3]) == one and keys([2 * L - 1, 2]) == two
+    (k1,), (k2,) = one, two
+    shapes = {name: shape for name, shape, _ in k1}
+    assert shapes["inputs"] == (SERVE_BATCH, L)
+    assert shapes["seen"] == (SERVE_BATCH, 32)
+    assert {name: shape for name, shape, _ in k2}["inputs"] == (
+        SERVE_BATCH, 2 * L)
