@@ -9,10 +9,10 @@
 //   out: the k largest s_bi of the row, descending: values [B, k] f32,
 //        ids [B, k] int64.
 // Each product of bf16 operands is exact in f32 and the sums run in f32:
-// only their order differs from the plain path (`_topk_full`,
-// `blocked_topk_mips`). A seen id below 0 names nothing; one ≥ V names
-// nothing, or V − 1 where `clamp` is set, which is the plain paths' two
-// rules (dropped by `_topk_full`, clamped by `blocked_topk_mips`).
+// only their order differs from the plain path (`mips_topk_plain`). A seen
+// id below 0 names nothing; one ≥ V names nothing, or V − 1 where `clamp`
+// is set: `seen_rule`'s two rules (arec's `_topk_full` drops such an id,
+// its `blocked_topk_mips` clamps it).
 //
 // It replaces no TPU kernel: arec's top-k is lax.top_k over scores that
 // XLA computes. It is added because the port's chain of library ops for it

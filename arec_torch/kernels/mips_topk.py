@@ -16,14 +16,14 @@ reaches device memory (the source's note says how). A call is four
 launches on the current stream and one scratch allocation.
 
 `mips_topk` launches the kernels for CUDA tensors, or raises: there is
-no fallback. `mips_topk_plain` is the plain version, the dispatch that
-`train/evalu.topk_with_mask` takes for CPU tensors: `_topk_full` up to
-`BLOCKED_EVAL_MIN_V` items, `blocked_topk_mips` above it. The two read an
-out-of-range seen id differently (`_topk_full` drops it, the blocked path
-clamps it into [0, V)); `seen_rule` states each rule, and the kernels
-apply the one of the branch the CPU takes at that V to each id as they
-read the slab, so the answer is the plain version's at every V.
-`launch_plan` reports what the kernels would launch, without launching.
+no fallback. `mips_topk_plain` is the plain version, the one-device exact
+top-k that `train/evalu.topk_with_mask` takes for CPU tensors:
+`retrieval/mips.score_and_select` over the seen slab as
+`retrieval/mips.seen_rule` reads it at V (an id ≥ V dropped up to
+BLOCKED_EVAL_MIN_V items, clamped to V − 1 above). The kernels apply that
+rule to each id as they read the slab, so the answer is the plain
+version's at every V. `launch_plan` reports what the kernels would
+launch, without launching.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import functools
 import torch
 
 from arec_torch.kernels import _build
+from arec_torch.retrieval.mips import clamps, score_and_select, seen_rule
 
 KERNEL = "mips_topk"
 MAX_K = 64       # the kernel's widest list
@@ -41,38 +42,16 @@ MAX_D = 256      # its deepest row; D is a multiple of 16
 MAX_V = 1 << 29  # its most items (an item's offset fits a 32-bit tag)
 
 
-def clamps(v: int) -> bool:
-    """Whether the plain path at V = v clamps a seen id ≥ v to v − 1
-    (`blocked_topk_mips`, above `BLOCKED_EVAL_MIN_V`) rather than dropping
-    it (`_topk_full`)."""
-    from arec_torch.train.evalu import BLOCKED_EVAL_MIN_V
-    return v > BLOCKED_EVAL_MIN_V
-
-
-def seen_rule(seen: torch.Tensor, v: int) -> torch.Tensor:
-    """The seen slab as the plain path at V = v reads it, and as the kernel
-    reads each id: an id below 0 becomes −1 (nothing); an id ≥ v becomes
-    −1 too, or v − 1 where `clamps(v)`. int32, the shape of `seen`."""
-    high = v - 1 if clamps(v) else -1
-    return torch.where(seen < 0, -1, torch.where(seen >= v, high, seen)).to(
-        torch.int32)
-
-
 @torch.no_grad()
 def mips_topk_plain(query, items, bias, seen, k: int = 30,
                     compute_dtype=torch.bfloat16, score_mem_mb: int = 512):
-    """Plain version: (scores [B, k], ids [B, k]) by the dispatch on V
-    (operands rounded to `compute_dtype`, products summed in f32):
-    `_topk_full` materialises [B, V] scores; above BLOCKED_EVAL_MIN_V the
-    query-blocked `blocked_topk_mips` bounds them by `score_mem_mb`."""
-    from arec_torch.retrieval.mips import blocked_topk_mips
-    from arec_torch.train.evalu import _topk_full
-    if clamps(items.shape[0]):
-        return blocked_topk_mips(query, items, bias, seen, k=k,
-                                 compute_dtype=compute_dtype,
-                                 score_mem_mb=score_mem_mb)
-    return _topk_full(query, items, bias, seen, k=k,
-                      compute_dtype=compute_dtype)
+    """Plain version: (scores [B, k], ids [B, k]), the query-blocked loop
+    over `seen_rule(seen, V)` (operands rounded to `compute_dtype`,
+    products summed in f32, peak score memory bounded by
+    `score_mem_mb`)."""
+    return score_and_select(query, items, bias,
+                            seen_rule(seen, items.shape[0]), k,
+                            compute_dtype, score_mem_mb=score_mem_mb)
 
 
 @functools.cache

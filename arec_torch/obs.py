@@ -43,10 +43,8 @@ The spans, each at the layer boundary where its work happens:
   input.stage     its staging of the batch (`data/prefetch`)
 
 and the counters serve.rows_live, serve.rows: the live and padded rows of
-every served batch; serve.topk_kernel: the exact top-k calls that took the
-fused kernel pair (`train/evalu.topk_with_mask`, or a replay of its
-captured graph); serve.graph_replays: the served calls answered by CUDA
-graph replays, and serve.graph_captures: the input shapes captured
+every served batch; serve.graph_replays: the served calls answered by
+CUDA graph replays, and serve.graph_captures: the input shapes captured
 (`serve.Recommender`).
 
 Inside `suspended()` a thread records nothing: a CUDA graph capture runs

@@ -1,21 +1,29 @@
-"""Serving-time candidate retrieval: top-k MIPS over the (sharded) item
-table (port of `arec/retrieval/mips.py`).
+"""The seen-masked top-k MIPS over the (sharded) item table in plain
+PyTorch (port of `arec/retrieval/mips.py`), and the seen-id rule.
 
-Query-blocked: each chunk of queries scores the full vocab, masks its seen
-items and selects top-k, so peak score memory stays within `score_mem_mb`
-at any V (at V ≈ 1.3M a [256, V] f32 score matrix would be 1.3 GB).
-recall_target = 1 is exact; recall_target < 1 selects with `approx_max_k`,
-the port's counterpart of `lax.approx_max_k`, over top-(k+S) candidates
-and masks the seen ids among them, as arec does.
+`score_and_select` is the one score-and-select loop: query-blocked, so
+that each chunk of queries scores the full block of items, masks its seen
+items and selects top-k, and peak score memory stays within
+`score_mem_mb` at any V (at V ≈ 1.3M a [256, V] f32 score matrix would
+be 1.3 GB). recall_target = 1 is exact; recall_target < 1 selects with
+`approx_max_k`, the port's counterpart of `lax.approx_max_k`, over
+top-(k+S) candidates and masks the seen ids among them, as arec does.
+
+The loop reads a seen slab already mapped to its block's ids (−1 for
+nothing). Each caller maps it once, by the rule of the arec path it
+stands for: the one-device exact top-k by `seen_rule` (an id ≥ V dropped
+up to BLOCKED_EVAL_MIN_V items, as arec's `_topk_full`; clamped to V − 1
+above it, as arec's `blocked_topk_mips`); `blocked_topk_mips` clamps
+where exact, as arec's does; the approximate selection drops an id ≥ V.
 
 On a mesh (`make_sharded_topk`) each rank holds a contiguous block of the
 item matrix (rows padded to a model-axis multiple, pad bias −1e9:
-`pad_item_shards`) and its "data" slab of the queries; it scores its
-block query-blocked, masks the seen ids that fall in its block (seen ids
-are global), takes a local top-min(k, Vs), and the candidates are
-all-gathered over "model" in shard order for an exact merge. The top-k of
-a union of per-shard top-ks is the global top-k, so the merge loses
-nothing; ties may be ordered differently from arec's `lax.top_k`.
+`pad_item_shards`) and its "data" slab of the queries; it runs the loop
+over its block with the seen ids that fall in it (seen ids are global),
+takes a local top-min(k, Vs), and the candidates are all-gathered over
+"model" in shard order for an exact merge. The top-k of a union of
+per-shard top-ks is the global top-k, so the merge loses nothing; ties
+may be ordered differently from arec's `lax.top_k`.
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ import math
 import torch
 import torch.distributed as dist
 
+from arec_torch.dist.specs import TABLE_AXIS
+from arec_torch.tables.engine import rounded
+
 TILING = 128   # XLA's tile of the reduced (minor-most) dimension
+BLOCKED_EVAL_MIN_V = 131072  # above this, arec takes the blocked path
 
 
 def approx_reduction_size(v: int, k: int,
@@ -86,24 +98,51 @@ def approx_max_k(scores, k: int, recall_target: float):
     return tv, rows.gather(1, tb) * r + tb
 
 
-def blocked_topk_mips(query, item_latents, item_bias, seen, k: int = 30,
-                      qblock: int = 0, compute_dtype=torch.bfloat16,
-                      recall_target: float = 1.0, score_mem_mb: int = 512):
-    """(scores [B, k], ids [B, k]). The operands are rounded to
-    `compute_dtype` once, outside the chunk loop, and every chunk's product
-    sums in f32.
+def clamps(v: int) -> bool:
+    """Whether the one-device exact top-k at V = v clamps a seen id ≥ v to
+    v − 1, as arec's `blocked_topk_mips` does (its dispatch's path above
+    BLOCKED_EVAL_MIN_V), rather than dropping it, as arec's `_topk_full`
+    does (the path up to it)."""
+    return v > BLOCKED_EVAL_MIN_V
 
-    recall_target = 1: identical to `_topk_full`; a seen id clamps into
-    [0, V) before its −1e9 penalty is added (arec's clip; PAD = -1 adds
-    nothing).
+
+def _local_ids(seen, v: int, clamp: bool) -> torch.Tensor:
+    """The seen slab as ids of a block of `v` items: an id below 0 becomes
+    −1 (nothing); an id ≥ v becomes −1 too, or v − 1 where `clamp`.
+    int32, the shape of `seen`."""
+    high = v - 1 if clamp else -1
+    return torch.where(seen < 0, -1, torch.where(seen >= v, high, seen)).to(
+        torch.int32)
+
+
+def seen_rule(seen: torch.Tensor, v: int) -> torch.Tensor:
+    """The seen slab as the one-device exact top-k at V = v reads it, and as
+    the fused kernels read each id: −1 or an id in [0, v), an id ≥ v
+    dropped or, where `clamps(v)`, clamped to v − 1."""
+    return _local_ids(seen, v, clamps(v))
+
+
+def score_and_select(query, items, bias, seen, k: int,
+                     compute_dtype=torch.bfloat16, recall_target: float = 1.0,
+                     score_mem_mb: int = 512, qblock: int = 0,
+                     offset: int = 0):
+    """(scores [B, k], ids [B, k]), best first: the seen-masked top-k of
+    query [B, D] over items [V, D] + bias [V], query-blocked so that a
+    chunk's [qblock, V] f32 scores stay within `score_mem_mb` (floored at
+    one query row). seen [B, S] holds ids of this block, in [0, V), or
+    below 0 for nothing: the caller maps its slab first. The returned ids
+    are the block's plus `offset`.
+
+    recall_target = 1: −1e9 is scatter-added at each seen id (a duplicate
+    is penalised twice, as in arec), then `torch.topk`.
     recall_target < 1: `approx_max_k` takes kb = min(k + S, V) candidates
-    per row; a row's seen ids (sorted, PAD → V + 1) can hold at most S of
-    them, and a candidate found among them by a sorted search is set to
-    −inf with id −1; the result is the exact top-k of the candidates (so
-    where fewer than k unseen candidates remain, −inf / −1 fill the tail,
-    as in arec)."""
+    a row; a row's seen ids, sorted, can hold at most S of them, and a
+    candidate found among them by a sorted search is set to −inf with id
+    −1; the result is the exact top-k of the candidates (so where fewer
+    than k unseen candidates remain, −inf / −1 fill the tail, as in
+    arec)."""
     b = query.shape[0]
-    v = item_latents.shape[0]
+    v = items.shape[0]
     s_width = seen.shape[1]
     if not qblock:
         # budget → chunk count first, then even chunks
@@ -111,87 +150,49 @@ def blocked_topk_mips(query, item_latents, item_bias, seen, k: int = 30,
         nb = -(-b // qblock)
         qblock = -(-b // nb)
     exact = recall_target >= 1.0
-    if not exact:
-        seen = torch.sort(torch.where(seen >= 0, seen, v + 1).long(),
+    if exact:
+        seen = seen.long()
+    else:
+        seen = torch.sort(torch.where(seen >= 0, seen, v).long(),
                           dim=1).values
         kb = min(k + s_width, v)
-    qs = query.to(compute_dtype).float()
-    vt = item_latents.to(compute_dtype).float().T
+    qs = rounded(query, compute_dtype)
+    vt = rounded(items, compute_dtype).T
     vals, ids = [], []
     for s in range(0, b, qblock):
         sn = seen[s:s + qblock]
-        scores = qs[s:s + qblock] @ vt + item_bias[None, :]
+        scores = qs[s:s + qblock] @ vt + bias[None, :]
         if exact:
             rows = torch.arange(sn.shape[0], device=sn.device)[:, None]
             penalty = torch.where(sn >= 0, -1e9, 0.0).to(scores.dtype)
-            scores.index_put_((rows.expand(sn.shape),
-                               sn.clamp(0, v - 1).long()), penalty,
-                              accumulate=True)
+            scores.index_put_((rows.expand(sn.shape), sn.clamp_min(0)),
+                              penalty, accumulate=True)
             tv, ti = torch.topk(scores, k, dim=1)
         else:
-            cv, ci = approx_max_k(scores, kb, recall_target)
+            cv, ti = approx_max_k(scores, kb, recall_target)
             if s_width > 0:   # width-0 seen: nothing to mask
-                pos = torch.searchsorted(sn, ci).clamp_max(s_width - 1)
-                hit = sn.gather(1, pos) == ci
+                pos = torch.searchsorted(sn, ti).clamp_max(s_width - 1)
+                hit = sn.gather(1, pos) == ti
                 cv = cv.masked_fill(hit, -math.inf)
-                ci = ci.masked_fill(hit, -1)
+                ti = ti.masked_fill(hit, -1)
             tv, tp = torch.topk(cv, k, dim=1)
-            ti = ci.gather(1, tp)
+            ti = ti.gather(1, tp)
         vals.append(tv)
-        ids.append(ti)
+        ids.append(torch.where(ti >= 0, ti + offset, -1) if offset else ti)
     return torch.cat(vals), torch.cat(ids)
 
 
-def _local_score_topk(q, v_shard, b_shard, seen, k, compute_dtype, offset,
-                      score_mem_mb=512, recall_target=1.0, qblock=0):
-    """One rank's part of the sharded top-k: score the item block
-    v_shard [Vs, D] (global ids offset .. offset + Vs) query-blocked under
-    `score_mem_mb`, mask the seen ids in this block, and return the local
-    top-min(k, Vs) (values, GLOBAL ids). recall_target < 1 selects each
-    chunk with `approx_max_k` over top-(k+S) candidates and masks the
-    seen ids among them (sentinel id −1), as `blocked_topk_mips` does."""
-    vs = v_shard.shape[0]
-    kl = min(k, vs)
-    bl = q.shape[0]
-    s_width = seen.shape[1]
-    if not qblock:
-        qblock = max(1, min(bl, (score_mem_mb << 20) // max(4 * vs, 1)))
-        nb = -(-bl // qblock)
-        qblock = -(-bl // nb)
-    exact = recall_target >= 1.0
-    if not exact:
-        # sorted GLOBAL ids (pad → int32 max) for candidate-set membership
-        seen = torch.sort(torch.where(seen >= 0, seen, 2**31 - 1).long(),
-                          dim=1).values
-        kb = min(k + s_width, vs)
-    qs = q.to(compute_dtype).float()
-    vt = v_shard.to(compute_dtype).float().T
-    vals, ids = [], []
-    for s in range(0, bl, qblock):
-        sn = seen[s:s + qblock]
-        scores = qs[s:s + qblock] @ vt + b_shard[None, :]
-        if exact:
-            local = sn.long() - offset
-            mine = (local >= 0) & (local < vs) & (sn >= 0)
-            rows = torch.arange(sn.shape[0], device=sn.device)[:, None]
-            scores.index_put_((rows.expand(sn.shape), local.clamp(0, vs - 1)),
-                              torch.where(mine, -1e9, 0.0).to(scores.dtype),
-                              accumulate=True)
-            tv, ti = torch.topk(scores, kl, dim=1)
-            gi = ti + offset
-        else:
-            cv, ci = approx_max_k(scores, kb, recall_target)
-            ci = ci + offset
-            if s_width > 0:
-                pos = torch.searchsorted(sn, ci).clamp_max(s_width - 1)
-                hit = sn.gather(1, pos) == ci
-                cv = cv.masked_fill(hit, -math.inf)
-                ci = ci.masked_fill(hit, -1)
-            tv, tp = torch.topk(cv, kl, dim=1)
-            gi = ci.gather(1, tp)
-        vals.append(tv)
-        ids.append(gi)
-    return torch.cat(vals), torch.cat(ids)
+def blocked_topk_mips(query, item_latents, item_bias, seen, k: int = 30,
+                      qblock: int = 0, compute_dtype=torch.bfloat16,
+                      recall_target: float = 1.0, score_mem_mb: int = 512):
+    """arec's function of this name: `score_and_select` over the slab with
+    an id ≥ V clamped to V − 1 (arec's clip) where the selection is exact,
+    and dropped where it is approximate (such an id is no candidate)."""
+    v = item_latents.shape[0]
+    return score_and_select(
+        query, item_latents, item_bias,
+        _local_ids(seen, v, clamp=recall_target >= 1.0), k, compute_dtype,
+        recall_target, score_mem_mb, qblock)
 
 
 def _gather_model(x, group, t):
@@ -213,14 +214,16 @@ def make_sharded_topk(mesh, k: int = 30, compute_dtype=torch.bfloat16,
     approximately per shard, and the merge stays exact. Where the
     candidates are fewer than k (the whole vocabulary is), the tail is
     −inf / −1, as in arec."""
-    from arec_torch.dist.specs import TABLE_AXIS
     group, t = mesh.get_group(TABLE_AXIS), mesh.size(1)
     me = mesh.get_local_rank(TABLE_AXIS)
 
     def topk(query, item_shard, bias_shard, seen):
-        vals, ids = _local_score_topk(
-            query, item_shard, bias_shard, seen, k, compute_dtype,
-            me * item_shard.shape[0], score_mem_mb, recall_target, qblock)
+        vs = item_shard.shape[0]
+        offset = me * vs
+        vals, ids = score_and_select(
+            query, item_shard, bias_shard,
+            _local_ids(seen - offset, vs, clamp=False), min(k, vs),
+            compute_dtype, recall_target, score_mem_mb, qblock, offset)
         all_vals = _gather_model(vals, group, t)
         all_ids = _gather_model(ids, group, t)
         km = min(k, all_vals.shape[1])
@@ -233,16 +236,6 @@ def make_sharded_topk(mesh, k: int = 30, compute_dtype=torch.bfloat16,
         return m_vals, m_ids
 
     return topk
-
-
-def sharded_topk(mesh, query, item_shard, bias_shard, seen, k: int = 30,
-                 compute_dtype=torch.bfloat16, score_mem_mb: int = 512,
-                 recall_target: float = 1.0):
-    """One-shot `make_sharded_topk`."""
-    return make_sharded_topk(mesh, k=k, compute_dtype=compute_dtype,
-                             score_mem_mb=score_mem_mb,
-                             recall_target=recall_target)(
-        query, item_shard, bias_shard, seen)
 
 
 def pad_item_shards(item_latents, item_bias, model_size: int):

@@ -175,7 +175,6 @@ class _ServeGraph:
                 self.query.replay()
             with obs.span("serve.topk", stream=self.device):
                 self.topk.replay()
-            obs.count("serve.topk_kernel", 1)
             with obs.span("serve.d2h"):
                 self.ids_host.copy_(self.ids, non_blocking=True)
                 self.done.record()

@@ -239,13 +239,19 @@ def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return arr[idx.clamp(0, n - 1)]
 
 
+def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x rounded to `dtype` and held in f32: an operand of a product whose
+    sums run in f32 (jax's preferred_element_type=f32)."""
+    return x.to(dtype).float()
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     """a·b with both operands rounded to `dtype` and an f32 product: the
     torch twin of jax's dot(a.astype(dtype), b.astype(dtype),
     preferred_element_type=f32). A bf16 torch matmul would round the
     OUTPUT to bf16; here only the operands are rounded (their products are
     exact in f32, and the sums run in f32)."""
-    return a.to(dtype).float() @ b.to(dtype).float()
+    return rounded(a, dtype) @ rounded(b, dtype)
 
 
 def encode(params: Params, spec: EncoderSpec, attr_dev: dict, ids,

@@ -107,7 +107,7 @@ from arec_torch.tables.sharded import (
 )
 from arec_torch.train import sparse as sparse_mod
 from arec_torch.train.checkpoint import Checkpointer, abstract_like
-from arec_torch.train.evalu import recall_hits, topk_with_mask
+from arec_torch.train.evalu import topk_with_mask
 from arec_torch.train.metrics import MetricLogger
 from arec_torch.train.profile import StepProfiler
 from arec_torch.train.step import (
@@ -329,22 +329,31 @@ def _query_fn(spec, params, item_dev, user_dev, batch, sh=None):
         lookup_fn=lks.get("item", dense_lookup), lookup_fns=lks or None)
 
 
+def _make_topk(k: int, recall_target: float, score_mem_mb: int = 512,
+               sh=None, dtype=None):
+    """The seen-masked top-k that serving, `recommend()` and eval take,
+    topk(q, v, b, seen) -> (scores, ids): exact, or approximate with
+    recall_target < 1. On one device `topk_with_mask`, which, like arec's
+    single-device step, is passed no compute dtype, so the scores take
+    bf16 operands even when the model computes in f32; on a mesh arec's
+    sharded top-k in the model's compute dtype `dtype`, over this rank's
+    slab."""
+    if sh is None:
+        return functools.partial(topk_with_mask, k=k,
+                                 recall_target=recall_target,
+                                 score_mem_mb=score_mem_mb)
+    return make_sharded_topk(sh.mesh, k=k, compute_dtype=dtype,
+                             recall_target=recall_target,
+                             score_mem_mb=score_mem_mb)
+
+
 def _serve_parts(cfg: Config, spec, item_dev, user_dev, k: int, sh=None):
     """The serving step's two bare parts, with no span around them:
-    query(params, batch) -> q, and topk(q, v, b, seen) -> (scores, ids),
-    the seen-masked top-k, exact or, with serve_recall_target < 1,
-    approximate. Like arec's single-device step it passes no compute
-    dtype to the top-k, so the scores take bf16 operands even when the
-    model computes in f32; on a mesh it is arec's sharded top-k in the
-    model's compute dtype, over this rank's slab."""
-    target = cfg.train.serve_recall_target
-    mem = cfg.train.serve_score_mem_mb
-    if sh is None:
-        topk = functools.partial(topk_with_mask, k=k, recall_target=target,
-                                 score_mem_mb=mem)
-    else:
-        topk = make_sharded_topk(sh.mesh, k=k, compute_dtype=spec.dtype,
-                                 recall_target=target, score_mem_mb=mem)
+    query(params, batch) -> q, and `_make_topk`'s top-k at
+    serve_recall_target and serve_score_mem_mb."""
+    t = cfg.train
+    topk = _make_topk(k, t.serve_recall_target, t.serve_score_mem_mb, sh,
+                      spec.dtype)
 
     def query(params, batch):
         return _query_fn(spec, params, item_dev, user_dev, batch, sh)
@@ -572,26 +581,19 @@ class Trainer:
         return tb, tb.pop("seen")
 
     def _eval_step(self, k: int, target: float):
-        """Per-batch (hits, count) for Recall@K; on a mesh through the
-        sharded top-k in the model's compute dtype, as arec's mesh eval
-        step, with the counts summed over "data"."""
-        if self.sh is None:
-            def step(params, v, b, tb, seen):
-                return recall_hits(self._query_fn(params, tb), v, b, seen,
-                                   tb["pos_item"], tb["valid"], k=k,
-                                   recall_target=target)
-            return step
-        topk = make_sharded_topk(self.sh.mesh, k=k,
-                                 compute_dtype=self.spec.dtype,
-                                 recall_target=target)
+        """Per-batch (hits, count) for Recall@K through `_make_topk`'s
+        top-k at `target` and the default score budget; on a mesh the
+        counts are summed over "data"."""
+        topk = _make_topk(k, target, sh=self.sh, dtype=self.spec.dtype)
 
-        def mesh_step(params, v, b, tb, seen):
+        def step(params, v, b, tb, seen):
             _, ids = topk(self._query_fn(params, tb), v, b, seen)
             hit = (ids == tb["pos_item"][:, None]).any(dim=1).float()
             hc = torch.stack([(hit * tb["valid"]).sum(), tb["valid"].sum()])
-            dist.all_reduce(hc, group=self.sh.data_group)
+            if self.sh is not None:
+                dist.all_reduce(hc, group=self.sh.data_group)
             return hc[0], hc[1]
-        return mesh_step
+        return step
 
     @torch.no_grad()
     def evaluate(self, k: int | None = None, exact: bool = False) -> float:

@@ -1629,8 +1629,8 @@ def bound_topk(B, V, D, S, k):
 
 def mips_topk_phase(dev, shapes=TOPK_SHAPES, k=30):
     """The fused top-k kernels against their plain version (the chain of
-    library ops they replace: `blocked_topk_mips` at MF's V, `_topk_full`
-    at c4's) at the serving shapes: scores within f32 round-off, ids equal
+    library ops they replace: `retrieval.mips.score_and_select` over the
+    slab as `seen_rule` reads it) at the serving shapes: scores within f32 round-off, ids equal
     up to ties; the launch plan; device time a call queued behind a GPU
     spin for the kernels, the plain version and the library yardstick
     (torch.mm of the bf16 operands and torch.topk: no bias, no mask), the

@@ -1,22 +1,26 @@
-"""The mips_topk wrapper on the CPU: its plain version is the plain path's
-dispatch (`_topk_full` up to BLOCKED_EVAL_MIN_V items, `blocked_topk_mips`
-above), bit for bit; `seen_rule`, the per-id rule the kernel applies to the
-seen slab, leaves each branch's answer unchanged at its own V (an id ≥ V
-dropped by the first, clamped to V − 1 by the second); `topk_with_mask`
+"""The mips_topk wrapper on the CPU: its plain version answers as arec's
+`topk_with_mask` dispatch (`_topk_full` up to BLOCKED_EVAL_MIN_V items,
+`blocked_topk_mips` above) at each V, up to ties; `seen_rule`, the per-id
+rule the kernel applies to the seen slab, leaves each of arec's branches'
+answer unchanged at its own V (an id ≥ V dropped by the first, clamped to
+V − 1 by the second); `topk_with_mask`
 keeps the CPU's dispatch and launches nothing; and the wrapper's guards on
 D, k, dtypes, shapes, layout and device raise before any launch. The kernel
 itself is held against the plain version on the card
 (test_torch_mips_topk_cuda.py)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from arec.train.evalu import topk_with_mask as j_topk
 from arec_torch.kernels import mips_topk as tmk
-from arec_torch.retrieval.mips import blocked_topk_mips
+from arec_torch.retrieval import mips
 from arec_torch.train import evalu
+from torch_topk_check import assert_topk_equal_up_to_ties, ref_scores
 
-MIN_V = evalu.BLOCKED_EVAL_MIN_V
+MIN_V = mips.BLOCKED_EVAL_MIN_V
 B, D = 6, 16
 
 
@@ -33,7 +37,7 @@ def _inputs(v, s=12, seed=0):
     seen[:, 3] = -7
     seen[::2, 4] = v
     seen[1::2, 4] = v + 11
-    best = evalu._topk_full(q, lat, bias, seen[:, :0], k=1)[1]
+    best = tmk.mips_topk_plain(q, lat, bias, seen[:, :0], k=1)[1]
     seen[:, 5] = best[:, 0].to(torch.int32)
     lat[v - 1] = lat[0]            # the item a clamped id penalises is
     bias[v - 1] = 1e3              # every row's best
@@ -44,27 +48,30 @@ def _equal(a, b):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _arec(q, lat, bias, seen, k):
+    """arec's `topk_with_mask` at this V, as torch tensors."""
+    return tuple(torch.from_numpy(np.array(x)) for x in j_topk(
+        *(jnp.asarray(t.numpy()) for t in (q, lat, bias, seen)), k=k))
+
+
 @pytest.mark.parametrize("v", [300, MIN_V, MIN_V + 1, 140_000])
 def test_plain_is_the_plain_paths_dispatch(v):
     q, lat, bias, seen = _inputs(v)
     got = tmk.mips_topk_plain(q, lat, bias, seen, k=30)
-    if v > MIN_V:
-        want = blocked_topk_mips(q, lat, bias, seen, k=30)
-    else:
-        want = evalu._topk_full(q, lat, bias, seen, k=30)
-    _equal(got, want)
+    want = _arec(q, lat, bias, seen, 30)
+    scores = ref_scores(q, lat, bias, tmk.seen_rule(seen, v))
+    assert_topk_equal_up_to_ties(*got, *want, scores)
 
 
 @pytest.mark.parametrize("v", [300, MIN_V, MIN_V + 1, 140_000])
 def test_seen_rule_keeps_each_branchs_answer(v):
-    """The branch the CPU takes at V answers the same from the raw slab
-    and from `seen_rule`'s, where every id is −1 or in [0, V)."""
+    """arec's branch at V, and the plain version, answer the same from the
+    raw slab and from `seen_rule`'s, where every id is −1 or in [0, V)."""
     q, lat, bias, seen = _inputs(v, seed=1)
     rule = tmk.seen_rule(seen, v)
     assert rule.dtype == torch.int32 and rule.shape == seen.shape
     assert ((rule == -1) | ((rule >= 0) & (rule < v))).all()
-    branch = blocked_topk_mips if v > MIN_V else evalu._topk_full
-    _equal(branch(q, lat, bias, rule, k=30), branch(q, lat, bias, seen, k=30))
+    _equal(_arec(q, lat, bias, rule, 30), _arec(q, lat, bias, seen, 30))
     _equal(tmk.mips_topk_plain(q, lat, bias, rule, k=30),
            tmk.mips_topk_plain(q, lat, bias, seen, k=30))
 

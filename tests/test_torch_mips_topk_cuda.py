@@ -1,6 +1,6 @@
 """The mips_topk CUDA kernels vs their plain version (`mips_topk_plain`: the
-plain path's `_topk_full` up to BLOCKED_EVAL_MIN_V items, the query-blocked
-`blocked_topk_mips` above it), on the card: MF's serving shape (B 256,
+query-blocked loop of `retrieval.mips` over the seen slab as `seen_rule`
+reads it), on the card: MF's serving shape (B 256,
 V 1,304,126, D 128) and c4's (B 256, V 50,001, D 128), D 64, D 256, k 30,
 k 1 and k 64, an f32 item matrix and a bf16 query; seen slabs of width 0, 32 and 96 holding PAD,
 duplicated ids, ids below 0 and at or past V, ids of each row's own best
@@ -25,10 +25,11 @@ import pytest
 import torch
 
 from arec_torch.kernels import mips_topk as tmk
+from arec_torch.retrieval import mips
 from arec_torch.train import evalu
 
 ATOL, RTOL = 1e-4, 1e-6
-MIN_V = evalu.BLOCKED_EVAL_MIN_V
+MIN_V = mips.BLOCKED_EVAL_MIN_V
 
 
 @pytest.fixture

@@ -1,4 +1,5 @@
-"""arec_torch seen-masked top-k vs arec's: `_topk_full`, the query-blocked
+"""arec_torch seen-masked top-k vs arec's: the one-device plain path
+(`topk_with_mask` on the CPU) against `_topk_full`, the query-blocked
 `blocked_topk_mips` and the `topk_with_mask` dispatch, on the same numpy
 inputs. Scores are held to rtol 1e-5; ids must be equal wherever the
 neighbouring scores differ by more than that (lax.top_k and torch.topk may
@@ -12,6 +13,7 @@ import torch
 from arec.retrieval.mips import blocked_topk_mips as j_blocked
 from arec.train.evalu import _topk_full as j_full
 from arec.train.evalu import topk_with_mask as j_topk
+from arec_torch.retrieval import mips as tmips
 from arec_torch.retrieval.mips import blocked_topk_mips as t_blocked
 from arec_torch.train import evalu as tev
 from torch_topk_check import assert_topk_equal_up_to_ties, ref_scores
@@ -65,8 +67,8 @@ def _check(got, want, scores):
 def test_topk_full_matches_arec(name, dtype):
     got, want, seen, scores = _both(
         lambda *a, **k: j_full(*a, compute_dtype=getattr(jnp, dtype), **k),
-        lambda *a, **k: tev._topk_full(*a, compute_dtype=getattr(torch,
-                                                                 dtype), **k),
+        lambda *a, **k: tev.topk_with_mask(
+            *a, compute_dtype=getattr(torch, dtype), **k),
         CASES[name], bf16=dtype == "bfloat16")
     _check(got, want, scores)
     if CASES[name]["k"] <= CASES[name]["v"] - CASES[name]["seen_width"]:
@@ -86,9 +88,10 @@ def test_blocked_topk_matches_arec(name, score_mem_mb, qblock):
 
 
 def test_blocked_equals_full_in_the_port():
+    """One block of every query against one query a block."""
     arrays = _inputs(300, 8)
     q, lat, bias, seen = map(torch.from_numpy, arrays)
-    full = tev._topk_full(q, lat, bias, seen, k=30)
+    full = t_blocked(q, lat, bias, seen, k=30)
     blocked = t_blocked(q, lat, bias, seen, k=30, score_mem_mb=0)
     _check(blocked, full, ref_scores(*arrays))
 
@@ -97,7 +100,7 @@ def test_topk_with_mask_dispatch_matches_arec(monkeypatch):
     """Above BLOCKED_EVAL_MIN_V both sides take the blocked path."""
     import arec.train.evalu as jev
     monkeypatch.setattr(jev, "BLOCKED_EVAL_MIN_V", 100)
-    monkeypatch.setattr(tev, "BLOCKED_EVAL_MIN_V", 100)
+    monkeypatch.setattr(tmips, "BLOCKED_EVAL_MIN_V", 100)
     got, want, _, scores = _both(j_topk, tev.topk_with_mask, CASES["plain"],
                                  score_mem_mb=0)
     _check(got, want, scores)
@@ -106,8 +109,8 @@ def test_topk_with_mask_dispatch_matches_arec(monkeypatch):
 def test_recall_hits_matches_arec():
     from arec.train.evalu import recall_hits as j_recall
     q, lat, bias, seen = _inputs(300, 8)
-    _, ids = tev._topk_full(*map(torch.from_numpy, (q, lat, bias, seen)),
-                            k=30)
+    _, ids = tev.topk_with_mask(*map(torch.from_numpy, (q, lat, bias, seen)),
+                                k=30)
     pos = np.where(np.arange(B) % 2 == 0, ids[:, 4].numpy(), 299)
     valid = np.ones(B, np.float32)
     valid[-1] = 0.0
@@ -115,3 +118,37 @@ def test_recall_hits_matches_arec():
     got = tev.recall_hits(*map(torch.from_numpy, (q, lat, bias, seen, pos,
                                                   valid)), k=30)
     assert [float(x) for x in got] == [float(x) for x in want]
+
+
+@pytest.mark.parametrize("recall_target", [1.0, 0.9])
+def test_offset_moves_only_real_ids(recall_target):
+    """A shard's ids are its block's plus the block's offset; the −1 of a
+    masked candidate (approximate, where fewer than k unseen items
+    remain) stays −1."""
+    q, lat, bias, seen = map(torch.from_numpy, _inputs(40, 40))
+    seen[1] = torch.arange(40)          # row 1 has seen every item
+    args = (q, lat, bias, seen, 35, torch.bfloat16, recall_target)
+    v0, i0 = tmips.score_and_select(*args)
+    v1, i1 = tmips.score_and_select(*args, offset=1000)
+    assert torch.equal(v0, v1)
+    assert torch.equal(i1, torch.where(i0 >= 0, i0 + 1000, -1))
+    assert (i0 == -1).any() == (recall_target < 1.0)
+
+
+@pytest.mark.parametrize("recall_target", [1.0, 0.9])
+def test_blocked_reads_an_id_past_v_as_arec(recall_target):
+    """`blocked_topk_mips` clamps a seen id ≥ V to V − 1 where it selects
+    exactly and drops it where it selects approximately, as arec's does.
+    Item V − 1 is every row's best, so either rule shows (at V 100 the
+    approximate selection reduces nothing, so arec's CPU lowering and
+    the port's agree)."""
+    q, lat, bias, seen = _inputs(100, 8)
+    bias[-1] = 1e3
+    seen[:, -1] = 100 + np.arange(B)
+    want = j_blocked(*map(jnp.asarray, (q, lat, bias, seen)), k=30,
+                     recall_target=recall_target)
+    got = t_blocked(*map(torch.from_numpy, (q, lat, bias, seen)), k=30,
+                    recall_target=recall_target)
+    rule = np.where(seen >= 100, 99 if recall_target >= 1.0 else -1, seen)
+    _check(got, want, ref_scores(q, lat, bias, rule))
+    assert ((got[1][:, 0] == 99).numpy() == (recall_target < 1.0)).all()

@@ -11,8 +11,8 @@ step on the same batches.
     matches the eager step on the new weights;
   * under a torch profiler the spans `serve.query` and `serve.topk` (with
     stream seconds) time the replays, and the counters
-    `serve.graph_replays`, `serve.graph_captures` and `serve.topk_kernel`
-    count calls, keys and top-k replays, nothing from inside a capture.
+    `serve.graph_replays` and `serve.graph_captures` count calls and keys,
+    nothing from inside a capture.
 
 Marked `cuda`: they skip where no CUDA device is present. On a machine with
 one (and no jax), run them without the jax-loading conftest:
@@ -230,7 +230,6 @@ def test_spans_and_counters_of_the_replays(dev, tmp_path, model):
     obs.reset()
     assert snap["counts"] == {"serve.rows_live": 300,
                               "serve.rows": 6 * SERVE_BATCH,
-                              "serve.topk_kernel": 6,
                               "serve.graph_replays": 3,
                               "serve.graph_captures": 1}
     spans = snap["spans"]

@@ -106,7 +106,7 @@ def lookups(inp):
 def topk(inp):
     from arec_torch.dist.mesh import make_mesh
     from arec_torch.dist.specs import batch_slab, shard_rows
-    from arec_torch.retrieval.mips import pad_item_shards, sharded_topk
+    from arec_torch.retrieval.mips import make_sharded_topk, pad_item_shards
 
     out = []
     meshes = {}
@@ -119,9 +119,10 @@ def topk(inp):
                                torch.from_numpy(c["b"]), shape[1])
         slab = batch_slab({"q": torch.from_numpy(c["q"]),
                            "seen": torch.from_numpy(c["seen"])}, mesh)
-        vals, ids = sharded_topk(
-            mesh, slab["q"], shard_rows(v, mesh), shard_rows(b, mesh),
-            slab["seen"], k=c["k"], recall_target=c["recall_target"])
+        vals, ids = make_sharded_topk(
+            mesh, k=c["k"], recall_target=c["recall_target"])(
+            slab["q"], shard_rows(v, mesh), shard_rows(b, mesh),
+            slab["seen"])
         out.append({"vals": _np(vals), "ids": _np(ids)})
     return out
 
