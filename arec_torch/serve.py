@@ -10,10 +10,15 @@ then item latents (pre-cast to the compute dtype) → per batch `_query_fn`
 → the sequence family's `seq_final_state_full` (the carried-state
 segmented scan, through the CUDA LSTM or GRU kernel with
 `use_pallas_scan`) or MF's `mf_user_latents` → seen-masked top-k.
-Requests are padded to a fixed batch of `serve_batch`. Each batch's build,
-H2D copy, query, top-k and D2H wait are the spans `serve.batch`,
-`serve.h2d`, `serve.query`, `serve.topk` and `serve.d2h`, its live and
-padded rows the counters `serve.rows_live` and `serve.rows`
+A dispatch holds at most `serve_batch` requests, padded to its row
+bucket: the least of 8 · 4^j (j >= 0) that holds its live requests,
+capped at serve_batch (8, 32, 128, 256 at serve_batch 256), so that one
+request is encoded and ranked as 8 rows, not 256. On a mesh the bucket
+is serve_batch, so that each rank's "data" slab keeps its size. Each
+batch's build, H2D copy, query, top-k and D2H wait are the spans
+`serve.batch`, `serve.h2d`, `serve.query`, `serve.topk` and `serve.d2h`,
+its live and dispatched rows (the bucket's) the counters
+`serve.rows_live` and `serve.rows`
 (`arec_torch.obs`, recorded while a torch profiler records). `refresh()`
 follows training in place: the newest checkpoint re-restored into the live
 object, the old state freed first, so residency never doubles.
@@ -21,23 +26,24 @@ object, the old state freed first, so residency never doubles.
 On one card with the exact top-k (a CUDA device, no mesh,
 serve_recall_target >= 1) a call is answered by CUDA graph replays, so the
 host issues two replays instead of the step's ops one by one. The key is
-the batch's shapes: the segment count of a history batch (its width
-n·max_seq_len) and the seen slab's width. Every call, on any path, sizes
-that slab to a bucket: the least floor · 2^j that holds the longest seen
-row (the floor is n·max_seq_len rounded up to 32 for a history batch, a
-history being its own seen list, and 32 for MF), padded with −1, which
-names no item. The first call of a key runs `train/loop._serve_parts`'
-query encode and top-k once eagerly on a side stream, then captures each
-as its own graph (`serve.query` and `serve.topk` then time the two
-replays), all keys in one memory pool, up to MAX_GRAPHS keys; a call past
-them runs the eager step. Each key holds its batch leaves on the device
-and a pinned host mirror of them: a batch is copied into the mirror and
-sent with one non-blocking H2D copy a leaf, and the ids come back into a
-pinned buffer behind an event. `refresh()` drops every graph, since they
-hold the old weights' addresses; the next call captures anew. Elsewhere
-(the CPU, a mesh, the approximate top-k) each call runs the eager step.
-The counters `serve.graph_replays` and `serve.graph_captures` count the
-calls answered by replay and the keys captured.
+the batch's shapes: its row bucket, the segment count of a history batch
+(its width n·max_seq_len) and the seen slab's width. Every call, on any
+path, sizes that slab to a bucket too: the least floor · 2^j that holds
+the longest seen row (the floor is n·max_seq_len rounded up to 32 for a
+history batch, a history being its own seen list, and 32 for MF), padded
+with −1, which names no item. The first call of a key runs
+`train/loop._serve_parts`' query encode and top-k once eagerly on a side
+stream, then captures each as its own graph (`serve.query` and
+`serve.topk` then time the two replays), all keys in one memory pool, up
+to MAX_GRAPHS keys; a call past them runs the eager step. Each key holds
+its batch leaves on the device and a pinned host mirror of them: a batch
+is copied into the mirror and sent with one non-blocking H2D copy a leaf,
+and the ids come back into a pinned buffer behind an event. `refresh()`
+drops every graph, since they hold the old weights' addresses; the next
+call captures anew. Elsewhere (the CPU, a mesh, the approximate top-k)
+each call runs the eager step. The counters `serve.graph_replays` and
+`serve.graph_captures` count the calls answered by replay and the keys
+captured.
 
 Weights may also be handed in as an arec-layout param tree (numpy or
 torch; see `arec_torch.bridge`); such a Recommender follows no checkpoint.
@@ -97,6 +103,20 @@ def _pad_seen(seen, n: int, width: int) -> np.ndarray:
             row = list(row)[-out.shape[1]:]
             out[i, : len(row)] = row
     return out
+
+
+def _bucket_rows(n_live: int, serve_batch: int, sharded: bool) -> int:
+    """Batch rows for one dispatch of `n_live` requests: the least of
+    8 · 4^j (j >= 0) that holds them, capped at serve_batch, so that calls
+    share a few row counts, a graph key each. None is below 8: the scan's
+    tensor-core launch takes 8 rows a CTA, so fewer cost as much. On a
+    mesh, serve_batch, so that each rank's "data" slab keeps its size."""
+    if sharded:
+        return serve_batch
+    rows = 8
+    while rows < n_live:
+        rows *= 4
+    return min(rows, serve_batch)
 
 
 def _bucket_width(seen, floor: int) -> int:
@@ -192,7 +212,10 @@ class Recommender:
         tree handed over as it is, numpy arrays or torch tensors
         (`arec_torch.bridge`), e.g. `jax.tree.map(np.asarray, params)`.
       k: list length per request (default cfg.train.eval_topk).
-      serve_batch: requests are padded to this batch size per dispatch.
+      serve_batch: the most requests a dispatch holds. A dispatch is
+        padded to its row bucket (`_bucket_rows`): the least of 8 · 4^j
+        rows that holds its requests, at most serve_batch; on a mesh,
+        serve_batch.
       seen_width: width of the per-request seen-id slab; None sizes it per
         call to the bucket that holds the longest seen list, so no
         exclusion list is truncated.
@@ -200,8 +223,9 @@ class Recommender:
 
     On one card with the exact top-k, each call is answered by CUDA graph
     replays of the query encode and the top-k, captured at the first call
-    of each input shape (the history batch's segment count and the seen
-    slab's bucket width; up to MAX_GRAPHS shapes, then the eager step);
+    of each input shape (the row bucket, the history batch's segment count
+    and the seen slab's bucket width; up to MAX_GRAPHS shapes, then the
+    eager step);
     `refresh()` drops the graphs. Elsewhere each call runs the eager step.
     """
 
@@ -318,11 +342,12 @@ class Recommender:
         def batches():
             for s in range(0, len(user_ids), sb):
                 chunk = user_ids[s:s + sb]
-                users = np.full(sb, pad_user, np.int32)
+                rows = _bucket_rows(len(chunk), sb, self._sh is not None)
+                users = np.full(rows, pad_user, np.int32)
                 users[:len(chunk)] = chunk
                 sl = None if seen is None else seen[s:s + sb]
                 yield {"user": users,
-                       "seen": _pad_seen(sl, sb, width)}, len(chunk)
+                       "seen": _pad_seen(sl, rows, width)}, len(chunk)
         return self._run(batches())
 
     # ------------------------------------------------------------------
@@ -353,7 +378,7 @@ class Recommender:
         with torch.inference_mode():
             for batch, n_valid in obs.iterate("serve.batch", batches):
                 obs.count("serve.rows_live", n_valid)
-                obs.count("serve.rows", self.serve_batch)
+                obs.count("serve.rows", len(batch["seen"]))
                 graph = self._graph(batch)
                 if graph is not None:
                     ids = graph(batch)
@@ -377,9 +402,9 @@ class Recommender:
 
     def _history_batches(self, histories, seen_from_history=True, seen=None,
                          user_ids=None):
-        """Fixed-shape numpy batches (and their live row counts) for
-        `from_histories`: histories left-padded / truncated to whole
-        max_seq_len segments."""
+        """Numpy batches (and their live row counts) for
+        `from_histories`, each of its row bucket's rows: histories
+        left-padded / truncated to whole max_seq_len segments."""
         spec = self.spec
         L = spec.max_seq_len
         sb = self.serve_batch
@@ -393,8 +418,9 @@ class Recommender:
         for s in range(0, len(histories), sb):
             chunk = histories[s:s + sb]
             n = len(chunk)
-            inputs = np.full((sb, total), pad_id, np.int32)
-            mask = np.zeros((sb, total), np.float32)
+            rows = _bucket_rows(n, sb, self._sh is not None)
+            inputs = np.full((rows, total), pad_id, np.int32)
+            mask = np.zeros((rows, total), np.float32)
             for i, h in enumerate(chunk):
                 h = list(h)[-total:]
                 if h:
@@ -402,10 +428,11 @@ class Recommender:
                     mask[i, total - len(h):] = 1.0
             batch = {"inputs": inputs, "mask": mask,
                      "seen": _pad_seen(
-                         None if seen is None else seen[s:s + sb], sb, width)}
+                         None if seen is None else seen[s:s + sb], rows,
+                         width)}
             if spec.user is not None:
                 # anonymous requests take the pad user, which encodes to 0
-                u = np.full(sb, spec.user.schema.num_entities, np.int32)
+                u = np.full(rows, spec.user.schema.num_entities, np.int32)
                 if user_ids is not None:
                     u[:n] = np.asarray(user_ids[s:s + sb], np.int32)
                 batch["user"] = u

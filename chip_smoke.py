@@ -1187,7 +1187,7 @@ def slice_phase(dev, cell="lstm", twin=TWIN, cuts=CUTS):
         f"{q_err:.3e} (tolerance {TOL['bfloat16']})")
     log(f"startup {startup_s:.3f} s (from the prepared cache), item-latent "
         f"encode {enc_ms:.3f} ms, first batch (its capture) {first_s:.3f} "
-        f"s, batch of {len(hists)} requests padded to 256: {batch_ms:.3f} "
+        f"s, batch of {len(hists)} requests (row bucket 8): {batch_ms:.3f} "
         f"ms; device launches (profiler) of the batch "
         f"{ {n: c for n, c in batch_launches.items() if c} }, of the lines "
         f"{ {n: c for n, c in loop_launches.items() if c} }")
@@ -3988,7 +3988,7 @@ def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
                       c4_cuts=CUTS):
     """The approximate top-k at serving width: syn_xing_full's MF
     `for_users` (256 users with their train items as seen lists, V =
-    1,304,126) and c4's LSTM serving batch (8 requests padded to 256),
+    1,304,126) and c4's LSTM serving batch (8 requests, row bucket 8),
     each with serve_recall_target 1.0 and 0.95, seeded random weights.
     The MF overlap must reach APPROX_MIN_OVERLAP. Returns the LSTM
     forward's device launches in the two traced c4 calls (profiler: the
@@ -4032,7 +4032,7 @@ def approx_topk_phase(dev, sets=MF_SETS, cuts=MF_CUTS, twin=TWIN,
     L = spec.max_seq_len
     segments = math.ceil(max(map(len, hists)) / L)
     _, launched = serve_compare(
-        "c4 LSTM from_histories, 8 requests padded to 256",
+        "c4 LSTM from_histories, 8 requests (row bucket 8)",
         lambda t: Recommender(with_target(cfg, t), params, serve_batch=256,
                               device=dev),
         lambda rec: rec.from_histories(hists), hists,

@@ -188,8 +188,7 @@ def _cfg(tmp_path, model):
         train=TrainConfig(compute_dtype="float32"))
 
 
-@pytest.mark.parametrize("model", ["mf", "lstm"])
-def test_recommender_records_each_batch(tmp_path, model):
+def _recommender(tmp_path, model, serve_batch):
     torch.set_num_threads(1)
     cfg = _cfg(tmp_path, model)
     ds = load_or_prepare(cfg.data)
@@ -200,19 +199,24 @@ def test_recommender_records_each_batch(tmp_path, model):
     else:
         spec = SeqSpec.from_config(cfg, ds.user_schema, ds.item_schema)
         params = init_seq(gen, spec)
-    rec = Recommender(cfg, bridge.to_numpy(params), serve_batch=4,
-                      device="cpu")
-    n = 10                                    # 3 batches: 4 + 4 + 2 live
+    return Recommender(cfg, bridge.to_numpy(params), serve_batch=serve_batch,
+                       device="cpu")
 
-    def call():
-        if model == "mf":
-            return rec.for_users(np.arange(n), seen=[[1, 2]] * n)
+
+def _served(rec, n):
+    if rec.is_seq:
         return rec.from_histories([[1, 2, 3]] * n)
+    return rec.for_users(np.arange(n) % 50, seen=[[1, 2]] * n)
 
-    call()                                    # no profiler: not recorded
+
+@pytest.mark.parametrize("model", ["mf", "lstm"])
+def test_recommender_records_each_batch(tmp_path, model):
+    rec = _recommender(tmp_path, model, serve_batch=4)
+    n = 10                                    # 3 batches: 4 + 4 + 2 live
+    _served(rec, n)                           # no profiler: not recorded
     assert obs.snapshot() == {"spans": {}, "counts": {}}
     with traced() as prof:
-        ids = call()
+        ids = _served(rec, n)
     assert ids.shape == (n, rec.k)
     snap = obs.snapshot()
     assert {name: s["count"] for name, s in snap["spans"].items()} == (
@@ -221,6 +225,19 @@ def test_recommender_records_each_batch(tmp_path, model):
     assert snap["counts"] == {"serve.rows_live": n, "serve.rows": 12}
     names = {e.name() for e in prof.profiler.kineto_results.events()}
     assert set(SERVE_SPANS) <= names
+
+
+@pytest.mark.parametrize("model", ["mf", "lstm"])
+def test_serve_rows_counts_the_row_buckets(tmp_path, model):
+    """`serve.rows` counts the rows dispatched, each batch's row bucket:
+    70 requests at serve_batch 64 are 64 + 6 live, dispatched as 64 + 8
+    rows; `serve.rows_live` counts the requests."""
+    rec = _recommender(tmp_path, model, serve_batch=64)
+    with traced():
+        ids = _served(rec, 70)
+    assert ids.shape == (70, rec.k)
+    assert obs.snapshot()["counts"] == {"serve.rows_live": 70,
+                                        "serve.rows": 64 + 8}
 
 
 def test_scan_multi_records_prepare_and_replay_per_replay():

@@ -89,11 +89,22 @@ def _requests(hists, kind):
     if kind == "explicit_seen":
         reqs = [h[-12:] for h in hists[:20]]
         return reqs, {"seen": [h[:3] + [7, 7] for h in hists[:20]]}
+    if kind in ("one", "nine"):               # below serve_batch: a bucket
+        return [h[-12:] for h in hists[:{"one": 1, "nine": 9}[kind]]], {}
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind", ["short", "long", "explicit_seen"])
+# each call's batches' rows: 20 requests at SERVE_BATCH 16 are 16 + 4
+# live (buckets 16, the cap, and 8); 1 takes bucket 8, 9 the cap
+ROWS = {"short": [16, 8], "long": [16, 8], "explicit_seen": [16, 8],
+        "one": [8], "nine": [16]}
+
+
+@pytest.mark.parametrize("kind", ["short", "long", "explicit_seen", "one",
+                                  "nine"])
 def test_from_histories_matches_arec(served, kind):
+    """The port's batches at their row buckets against arec's, which pads
+    every batch to serve_batch: the same ids up to ties."""
     jrec, trec, hists = served
     reqs, kw = _requests(hists, kind)
     want = jrec.from_histories(reqs, **kw)
@@ -101,7 +112,8 @@ def test_from_histories_matches_arec(served, kind):
     assert got.shape == want.shape == (len(reqs), 30)
     assert got.dtype == np.int32
     # ids up to ties, judged on the port's own query states
-    q, seen, _ = _port_queries(trec, reqs, **kw)
+    q, seen, batches = _port_queries(trec, reqs, **kw)
+    assert [len(b["inputs"]) for b in batches] == ROWS[kind]
     v, b = (x.float().numpy() for x in trec._vb)
     scores = ref_scores(q, v, b, seen)
     want_vals = np.take_along_axis(scores, want.astype(np.int64), axis=1)
@@ -191,9 +203,14 @@ def _mf_scores(trec, users, seen):
         seen, len(users), tserve._bucket_width(seen, 32)))
 
 
-@pytest.mark.parametrize("with_seen", [True, False])
-def test_for_users_matches_arec(served_mf, with_seen):
+@pytest.mark.parametrize("with_seen, n", [(True, 40), (False, 40), (True, 1),
+                                          (True, 9)],
+                         ids=["True", "False", "one", "nine"])
+def test_for_users_matches_arec(served_mf, with_seen, n):
+    """40 users are batches of 16, 16 and 8 live rows (buckets 16, 16, 8),
+    1 user bucket 8, 9 users the cap 16; arec pads each to 16."""
     jrec, trec, _, users, seen = served_mf
+    users, seen = users[:n], seen[:n]
     seen = seen if with_seen else None
     want = jrec.for_users(users, seen=seen)
     got = trec.for_users(users, seen=seen)
@@ -566,7 +583,20 @@ def test_history_key_follows_its_segment_count(served):
     assert keys([3]) == one and keys([2 * L - 1, 2]) == two
     (k1,), (k2,) = one, two
     shapes = {name: shape for name, shape, _ in k1}
-    assert shapes["inputs"] == (SERVE_BATCH, L)
-    assert shapes["seen"] == (SERVE_BATCH, 32)
-    assert {name: shape for name, shape, _ in k2}["inputs"] == (
-        SERVE_BATCH, 2 * L)
+    assert shapes["inputs"] == (8, L)         # 2 requests: row bucket 8
+    assert shapes["seen"] == (8, 32)
+    assert {name: shape for name, shape, _ in k2}["inputs"] == (8, 2 * L)
+    # more requests, a larger bucket, another key
+    assert keys([1] * 9) != one and keys([1] * 16) == keys([1] * 9)
+
+
+@pytest.mark.parametrize("n_live, serve_batch, sharded, rows", [
+    (1, 256, False, 8), (8, 256, False, 8), (9, 256, False, 32),
+    (32, 256, False, 32), (33, 256, False, 128), (200, 256, False, 256),
+    (256, 256, False, 256),
+    (1, 4, False, 4), (4, 4, False, 4),       # the cap below the least
+    (9, 64, False, 32), (33, 64, False, 64),  # the cap between buckets
+    (1, 256, True, 256), (33, 64, True, 64),  # a mesh: serve_batch
+])
+def test_row_bucket(n_live, serve_batch, sharded, rows):
+    assert tserve._bucket_rows(n_live, serve_batch, sharded) == rows

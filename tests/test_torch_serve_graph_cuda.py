@@ -4,7 +4,11 @@ step on the same batches.
 
   * the replays' scores and ids equal the eager step's bit for bit, and a
     whole call equals an eager Recommender's, for MF and for LSTM and GRU
-    histories of 1 and 2 segments, at two seen buckets each;
+    histories of 1 and 2 segments, at two seen buckets each, and at row
+    buckets below serve_batch;
+  * one history served alone (row bucket 8) and inside a full batch gets
+    the same ids up to ties, and one-history calls of 1 and 2 segments
+    (the standing server's traffic) capture exactly two keys;
   * a second call of a key captures nothing; a key past MAX_GRAPHS runs
     the eager step;
   * `refresh()` drops the graphs, and the next call captures anew and
@@ -34,6 +38,7 @@ from arec_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from arec_torch.data.io import load_or_prepare
 from arec_torch.models.mf import MFSpec, init_mf
 from arec_torch.models.seq import SeqSpec, init_seq
+from arec_torch.train.loop import _query_fn
 
 SERVE_BATCH = 64
 L = 10
@@ -82,11 +87,12 @@ def _eager(rec):
     return rec
 
 
-def _requests(rec, segments, seen, rng):
-    """A call's requests: 100 users (two batches), or 100 histories of
-    `segments` segments; with seen "long", seen lists of 33-64 ids (the
-    64 bucket) in place of the short ones (the 32 bucket)."""
-    n, V = 100, rec._vb[0].shape[0]
+def _requests(rec, segments, seen, rng, n=100):
+    """A call's requests: n users (100: two batches of 64 rows), or n
+    histories of `segments` segments; with seen "long", seen lists of
+    33-64 ids (the 64 bucket) in place of the short ones (the 32
+    bucket)."""
+    V = rec._vb[0].shape[0]
     lens = rng.integers(1 + (segments - 1) * L, segments * L + 1, n)
     short = [rng.integers(0, V, int(m)).tolist() for m in lens]
     long_ = [rng.integers(0, V, int(m)).tolist()
@@ -108,30 +114,118 @@ def test_replays_equal_the_eager_step_bit_for_bit(dev, tmp_path, model,
                                                   segments, seen):
     rec, cfg, params = _recommender(str(tmp_path), model, dev)
     call = _requests(rec, segments, seen, np.random.default_rng(1))
+    _replays_equal_eager(rec, cfg, params, call, SERVE_BATCH,
+                         {"short": 32, "long": 64}[seen], segments)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mf", "lstm", "gru"])
+@pytest.mark.parametrize("n, rows", [(5, 8), (20, 32)])
+def test_a_row_bucket_below_serve_batch_replays_the_eager_step(
+        dev, tmp_path, model, n, rows):
+    rec, cfg, params = _recommender(str(tmp_path), model, dev)
+    call = _requests(rec, 1, "short", np.random.default_rng(5), n=n)
+    _replays_equal_eager(rec, cfg, params, call, rows, 32, 1)
+
+
+def _replays_equal_eager(rec, cfg, params, call, rows, width, segments):
+    """One call of one key (`rows` × the seen slab's `width`, `segments`
+    segments a history) captures it; its result equals an eager
+    Recommender's, each batch's replayed scores and ids equal the eager
+    step's bit for bit, and a second call captures nothing."""
     got = call(rec)
     assert len(rec._graphs) == 1
     (g,) = rec._graphs.values()
-    width = {"short": 32, "long": 64}[seen]
     key = {name: shape for name, shape, _ in serve._graph_key(g.host_np)}
-    assert key["seen"] == (SERVE_BATCH, width)
+    assert key["seen"] == (rows, width)
     if rec.is_seq:
-        assert key["inputs"] == (SERVE_BATCH, segments * L)
+        assert key["inputs"] == (rows, segments * L)
     # the call against an eager Recommender of the same weights and widths
     eager = _eager(serve.Recommender(cfg, params, serve_batch=SERVE_BATCH,
-                                     device=dev))
+                                     device=rec.device))
     np.testing.assert_array_equal(got, call(eager))
     # each batch's scores and ids against the eager step on that batch
     v, b = rec._vb
     with torch.inference_mode():
         for batch in _batches_of(rec, call):
             g(batch)
-            tb = {n: torch.from_numpy(a).to(dev) for n, a in batch.items()}
+            tb = {n: torch.from_numpy(a).to(rec.device)
+                  for n, a in batch.items()}
             seen_t = tb.pop("seen")
             scores, ids = rec._step(rec._params, v, b, tb, seen_t)
             torch.testing.assert_close(g.scores, scores, rtol=0, atol=0)
             torch.testing.assert_close(g.ids, ids, rtol=0, atol=0)
     call(rec)
     assert len(rec._graphs) == 1 and next(iter(rec._graphs.values())) is g
+
+
+def _tie_scores(q, v, b, seen, ids):
+    """float64 seen-masked scores of `ids` [B, k] from bf16-rounded query
+    and item rows, as the fused top-k rounds its operands."""
+    ids = torch.as_tensor(ids, device=q.device).long()
+    s = torch.einsum("bkd,bd->bk", v[ids].to(torch.bfloat16).double(),
+                     q.to(torch.bfloat16).double()) + b[ids].double()
+    seen = torch.as_tensor(seen, device=q.device).long()
+    return s - 1e9 * (ids[:, :, None] == seen[:, None, :]).sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lstm", "gru"])
+def test_one_history_alone_and_in_a_full_batch(dev, tmp_path, model):
+    """A history served alone (row bucket 8) and as one row of a full
+    batch (64 rows): query states within f32 rounding (the GEMMs may sum
+    in another order at another row count), and the same ids up to ties,
+    each list judged on its own call's query state."""
+    rec, *_ = _recommender(str(tmp_path), model, dev)
+    rng = np.random.default_rng(6)
+    V = rec._vb[0].shape[0]
+    hists = [rng.integers(0, V, int(m)).tolist()
+             for m in rng.integers(1, 2 * L + 1, SERVE_BATCH)]
+    hists[0] = hists[0] + [1] * (L + 1 - len(hists[0]))   # 2 segments
+    full = rec.from_histories(hists)
+    v, b = rec._vb
+    (whole, _), = rec._history_batches(hists)
+    assert whole["inputs"].shape == (SERVE_BATCH, 2 * L)
+    q_full = _query_states(rec, whole)
+    for i in (0, 1, 31, SERVE_BATCH - 1):
+        alone = rec.from_histories([hists[i]])
+        (one, _), = rec._history_batches([hists[i]])
+        assert len(one["inputs"]) == 8
+        q_one = _query_states(rec, one)[:1]
+        if one["inputs"].shape[1] == whole["inputs"].shape[1]:
+            torch.testing.assert_close(q_one, q_full[i:i + 1], rtol=1e-5,
+                                       atol=1e-6)
+        seen = one["seen"][:1]
+        got = _tie_scores(q_one, v, b, seen, alone)
+        want = _tie_scores(q_full[i:i + 1], v, b, whole["seen"][i:i + 1],
+                           full[i:i + 1])
+        assert len(set(alone[0].tolist())) == alone.shape[1]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _query_states(rec, batch):
+    tb = {n: torch.from_numpy(a).to(rec.device) for n, a in batch.items()
+          if n != "seen"}
+    with torch.inference_mode():
+        return _query_fn(rec.spec, rec._params, rec._item_dev,
+                         rec._user_dev, tb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lstm", "gru"])
+def test_one_history_calls_capture_two_keys(dev, tmp_path, model):
+    """The standing server's traffic: one history a call, of 1 or 2
+    segments, with seen lists of at most 2·L ids. Two keys (row bucket 8,
+    1 and 2 segments) serve every call."""
+    rec, *_ = _recommender(str(tmp_path), model, dev)
+    rng = np.random.default_rng(7)
+    V = rec._vb[0].shape[0]
+    for m in rng.integers(1, 2 * L + 1, 40):
+        rec.from_histories([rng.integers(0, V, int(m)).tolist()])
+    assert len(rec._graphs) == 2
+    shapes = sorted(dict((name, shape) for name, shape, _ in key)["inputs"]
+                    for key in rec._graphs)
+    assert shapes == [(8, L), (8, 2 * L)]
 
 
 def _batches_of(rec, call):
