@@ -17,7 +17,8 @@ feed as the window's. Their losses, the first step's gradient (from a
 host copy of the state after step 1) and each leaf's change over each
 dispatch (from host copies of the state after each) are held against
 the reference's steps on batches the benchmark makes itself
-(reference/data.py), with the same negatives: the first K from the same
+(reference/data.py), with the same negatives where the loss draws any
+(program.mf_loss names the loss): the first K from the same
 weights, the next K from the program's state after the first dispatch
 (reference/train.py says why). The host copies are check work and are
 left out of setup_s. The reference runs
@@ -71,6 +72,7 @@ def run(r) -> None:
     dev = r.device
     cfg = program.config(r.cell, r.seed)
     fam, rnn = program.family(cfg), program.rnn_cell(cfg)
+    program.mf_loss(cfg)     # a loss the reference lacks stops the run here
     tr = Trainer(cfg, device=dev)
     ents = rdata.entities(r.cell.config["config"])
     w = weights.make(fam, ents, r.seed, dev, rnn)
@@ -165,7 +167,9 @@ def run(r) -> None:
 
 def _shape(cfg, ents) -> dict:
     d = cfg.model.dim
+    loss, ht = program.mf_loss(cfg)
     return {"B": cfg.train.batch_size, "S": cfg.train.num_sampled, "D": d,
+            "loss": loss, "ht": ht,
             "L": cfg.model.max_seq_len, "H": d,
             "item_fields": len(ents["item"].fields),
             "user_fields": len(ents["user"].fields) if "user" in ents else 0}
@@ -174,7 +178,7 @@ def _shape(cfg, ents) -> dict:
 def _work_counts(r, fam, rnn, window, n: int) -> None:
     """What the window's n steps needed, for the traced run's readers:
     the valid positions of each sequence batch and the steps' FLOPs (the
-    recurrence's by its cell, `rnn`)."""
+    recurrence's by its cell, `rnn`; MF's by its loss, `counts["loss"]`)."""
     from roofline.counts import mf_train_step_flops, seq_train_step_flops
     c = r.counts
     if fam == "seq":
@@ -184,7 +188,8 @@ def _work_counts(r, fam, rnn, window, n: int) -> None:
                          for v in c["valid"])
     else:
         c["flops"] = n * mf_train_step_flops(
-            c["B"], c["S"], c["D"], c["user_fields"], c["item_fields"])
+            c["B"], c["S"], c["D"], c["user_fields"], c["item_fields"],
+            c["loss"])
 
 
 def check(r, cfg, fam, ents, rd, batches, losses, held, sparse,
@@ -212,11 +217,15 @@ def check(r, cfg, fam, ents, rd, batches, losses, held, sparse,
 
 
 def reference_loss(fam, cfg, ents, m, dev, rows=None):
-    """loss(params, (step, batch), dt) of the reference, drawing the step's
-    negatives from the run's seed. rows: a slice of each batch's rows (a
-    planted fault: the loss over part of the batch)."""
+    """loss(params, (step, batch), dt) of the reference, for the loss the
+    configuration trains (`program.mf_loss`): the sampled CE draws the
+    step's negatives from the run's seed; an in-batch loss draws none, its
+    candidates are the batch's positives. rows: a slice of each batch's
+    rows, the candidates cut with them (a planted fault: the loss over
+    part of the batch)."""
     S, V = cfg.train.num_sampled, ents["item"].num
     rnn = program.rnn_cell(cfg)
+    kind, ht = program.mf_loss(cfg)
     cut = rows or slice(None)
 
     def t(b, k):
@@ -224,6 +233,10 @@ def reference_loss(fam, cfg, ents, m, dev, rows=None):
 
     def loss(flat, item, dt):
         step, b = item
+        if kind in model.BATCH_LOSSES:
+            return model.BATCH_LOSSES[kind](
+                weights.nest(flat), m, t(b, "user"), t(b, "pos_item"), dt,
+                ht)
         negs = keys.negatives(cfg.train.seed, step, S, V, dev)
         P = weights.nest(flat)
         if fam == "mf":

@@ -9,6 +9,8 @@ import json
 import os
 import tempfile
 
+from reference.model import BATCH_LOSSES
+
 
 def config(cell, seed: int):
     """The program's Config for a run: the file's `config` section, with
@@ -38,6 +40,32 @@ def rnn_cell(cfg) -> str | None:
     the weights' shapes, the reference's recurrence and the FLOP counts
     all take it from here."""
     return cfg.model.cell if family(cfg) == "seq" else None
+
+
+# the losses benchmark/reference implements, by family
+REFERENCE_LOSSES = {"mf": ("ce", *BATCH_LOSSES), "seq": ("ce",)}
+
+
+def mf_loss(cfg) -> tuple[str, bool]:
+    """(the training loss, whether its in-batch proposal is
+    Horvitz–Thompson corrected): ("ce" | "mw" | "bbpr", batch_ht) for MF,
+    ("ce", False) for a sequence configuration. The one place the harness
+    reads `train.loss` and `train.batch_ht`: the reference's loss, the
+    controls and the FLOP counts all take it from here. A loss that the
+    reference does not implement raises, so that no configuration is held
+    to a loss it does not train."""
+    fam, loss, ht = family(cfg), cfg.train.loss, bool(cfg.train.batch_ht)
+    known = REFERENCE_LOSSES[fam]
+    if loss not in known:
+        raise ValueError(
+            f"train.loss {loss!r}: the benchmark's reference has no "
+            f"{loss!r} loss for the {fam} family (it has "
+            f"{', '.join(known)})")
+    if ht and loss not in BATCH_LOSSES:
+        raise ValueError(
+            f"train.batch_ht with train.loss {loss!r}: only the in-batch "
+            f"losses {', '.join(BATCH_LOSSES)} take it")
+    return loss, ht
 
 
 def leaves(state, fam: str, sparse: bool) -> dict:

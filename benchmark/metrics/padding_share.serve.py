@@ -1,7 +1,7 @@
 """The padded share of the served rows, in %: 100 × (1 − live rows ÷ rows
 dispatched), from the program's counters `serve.rows_live` and
-`serve.rows` (arec_torch.obs: every batch's live requests and its
-serve_batch)."""
+`serve.rows` (arec_torch.obs: every batch's live requests and the rows
+it was padded to, its row bucket)."""
 
 
 def read(run):

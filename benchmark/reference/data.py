@@ -13,7 +13,8 @@ tag field on each side; the last interaction of each user with two or
 more held out; batches in a (seed, epoch) permutation). It is kept
 here, unchanged by the program's later edits, as the yardstick.
 
-Plain NumPy; imports nothing of the program."""
+Plain NumPy (PyTorch for the static parts' tensors); imports nothing of
+the program."""
 
 from __future__ import annotations
 
@@ -23,12 +24,15 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from reference.layout import Field, entity_of
 
 N_CLUSTERS = 16
 AFFINITY = 0.75
 MAX_HIST = 256
+ARRAYS = ("train_users", "train_items", "seen_items", "seen_lengths",
+          "hist_items", "hist_lengths", "item_freq")
 
 
 def fields(data: dict) -> dict:
@@ -50,13 +54,16 @@ def fields(data: dict) -> dict:
 class Data:
     """The twin's arrays: train interactions (user-sorted, time order
     within a user), per-user seen lists (first occurrence order) and
-    histories (newest last), PAD -1, and each entity's attribute values."""
+    histories (newest last), PAD -1, each item's count over every
+    interaction (held-out ones too), and each entity's attribute
+    values."""
     train_users: np.ndarray
     train_items: np.ndarray
     seen_items: np.ndarray
     seen_lengths: np.ndarray
     hist_items: np.ndarray
     hist_lengths: np.ndarray
+    item_freq: np.ndarray
     user_attrs: dict
     item_attrs: dict
 
@@ -73,7 +80,8 @@ def load(data: dict, cache_dir: str) -> Data:
                               "syn_seed", "syn_mulhot_degree",
                               "syn_tag_vocab")},
         sort_keys=True).encode()).hexdigest()[:16]
-    path = os.path.join(cache_dir, "reference", f"twin-{key}.npz")
+    # v2: the file holds item_freq, which a file of the first layout lacks
+    path = os.path.join(cache_dir, "reference", f"twin-v2-{key}.npz")
     if os.path.exists(path):
         with np.load(path) as z:
             return _unpack(dict(z))
@@ -86,9 +94,7 @@ def load(data: dict, cache_dir: str) -> Data:
 
 
 def _pack(d: Data) -> dict:
-    out = {k: getattr(d, k) for k in ("train_users", "train_items",
-                                      "seen_items", "seen_lengths",
-                                      "hist_items", "hist_lengths")}
+    out = {k: getattr(d, k) for k in ARRAYS}
     out.update({f"user.{k}": v for k, v in d.user_attrs.items()})
     out.update({f"item.{k}": v for k, v in d.item_attrs.items()})
     return out
@@ -97,10 +103,7 @@ def _pack(d: Data) -> dict:
 def _unpack(z: dict) -> Data:
     attrs = {e: {k.split(".", 1)[1]: v for k, v in z.items()
                  if k.startswith(e + ".")} for e in ("user", "item")}
-    return Data(*(z[k] for k in ("train_users", "train_items", "seen_items",
-                                 "seen_lengths", "hist_items",
-                                 "hist_lengths")),
-                attrs["user"], attrs["item"])
+    return Data(*(z[k] for k in ARRAYS), attrs["user"], attrs["item"])
 
 
 def _tags(rng, n: int, vocab: int, max_deg: int, cluster):
@@ -149,6 +152,8 @@ def make(data: dict) -> Data:
     rank = np.argsort(np.argsort(-freq, kind="stable"), kind="stable")
     items = rank[items].astype(np.int32)
     item_cluster = item_cluster[np.argsort(rank, kind="stable")]
+    # counted before the split, over the ids the ranks gave
+    item_freq = np.bincount(items, minlength=n_items).astype(np.int64)
 
     group = np.where(rng.random(n_users) < 0.9, user_cluster,
                      rng.integers(0, N_CLUSTERS, n_users)).astype(np.int32)
@@ -174,7 +179,7 @@ def make(data: dict) -> Data:
     pos = np.arange(len(tu)) - np.concatenate([[0], np.cumsum(n_of)[:-1]])[tu]
     keep = pos >= n_of[tu] - MAX_HIST
     hist, hist_n = _rows(tu[keep], ti[keep], n_users)
-    return Data(tu, ti, seen, seen_n, hist, hist_n,
+    return Data(tu, ti, seen, seen_n, hist, hist_n, item_freq,
                 {"user_id": np.arange(n_users, dtype=np.int32),
                  "group": group, "age": age, "user_tags": user_tags},
                 {"item_id": np.arange(n_items, dtype=np.int32),
@@ -273,12 +278,23 @@ def entities(cfg: dict) -> dict:
     return ents
 
 
+def item_probs(d: Data, device) -> torch.Tensor:
+    """The empirical item distribution [V] float32 that the in-batch
+    losses' Horvitz–Thompson weights read: each item's count over every
+    interaction of the twin, at least 1, over their sum (arec's
+    definition: `make_pop(item_freq, 1.0)`)."""
+    f = torch.as_tensor(d.item_freq, dtype=torch.float32,
+                        device=device).clamp_min(1.0)
+    return f / f.sum()
+
+
 def static_parts(ents: dict, d: Data, device) -> dict:
     """The reference model's static inputs: each entity's layout and its
-    value-slot map."""
+    value-slot map, and for MF the empirical item distribution."""
     m = {"item": ents["item"],
          "item_slots": ents["item"].slots(d.item_attrs, device)}
     if "user" in ents:
         m["user"] = ents["user"]
         m["user_slots"] = ents["user"].slots(d.user_attrs, device)
+        m["item_probs"] = item_probs(d, device)
     return m

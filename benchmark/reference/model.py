@@ -4,15 +4,19 @@ sampled-softmax loss and scoring, written from arec's published
 description (A-Recsys: attribute embeddings fused by a concat projection;
 TF1 sampled softmax with log-uniform negatives, -log(S·P) correction and
 accidental hits removed; left-padded masked TF1 LSTMCell or GRUCell;
-per-item output bias).
+per-item output bias), and MF's in-batch ranking losses `mw` and `bbpr`
+(AAAI'18), with their optional Horvitz–Thompson weights.
 
 `dt` is the precision of the products that the configuration's
-`compute_dtype` governs (the sampled logits, the recurrence's input
-projection and recurrent products, the serving scores): their operands
-are rounded to it and the sums run in float32. "bfloat16" is the
-configuration's own; "float8" (e4m3, one scale per operand) is the
-control's. The attribute encode and fusion, the true logit and the cell
-arithmetic run in float32.
+`compute_dtype` governs (the sampled logits, the in-batch scores, the
+recurrence's input projection and recurrent products, the serving
+scores): their operands are rounded to it and the sums run in float32.
+"bfloat16" is the configuration's own; "float8" (e4m3, one scale per
+operand) is the control's. The attribute encode and fusion, the true
+logit and the cell arithmetic run in float32. `mm` passes the gradient
+through the rounding unchanged; the in-batch scores' `mm_cast` rounds it
+to `dt` as well, as autodiff of a cast does (arec's product of operands
+cast to `compute_dtype`, and the port's `mm_f32`, differentiate so).
 
 Plain PyTorch; imports nothing of the program."""
 
@@ -47,6 +51,27 @@ def rounded(a: torch.Tensor, dt: str) -> torch.Tensor:
 
 def mm(a, b, dt: str) -> torch.Tensor:
     return rounded(a, dt) @ rounded(b, dt)
+
+
+class _Cast(torch.autograd.Function):
+    """`a` rounded to precision `dt` as a cast rounds it: its gradient is
+    rounded to `dt` too, as autodiff of a cast gives it."""
+
+    @staticmethod
+    def forward(ctx, a, dt):
+        ctx.dt = dt
+        return rounded(a, dt).detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        return rounded(g, ctx.dt), None
+
+
+def mm_cast(a, b, dt: str) -> torch.Tensor:
+    """a·b with both operands cast to `dt` and the sums in float32,
+    differentiated through the casts (arec's dot of operands cast to
+    `compute_dtype`): the operands' gradients are rounded to `dt`."""
+    return _Cast.apply(a.float(), dt) @ _Cast.apply(b.float(), dt)
 
 
 def encode(enc: dict, ent: Entity, slots: torch.Tensor, ids: torch.Tensor):
@@ -106,6 +131,83 @@ def mf_loss(P: dict, m: dict, users, pos, negs, dt: str) -> torch.Tensor:
     sv, sb = encode(P["item"], m["item"], m["item_slots"], negs[0])
     return sampled_ce(u, tv, tb, pos, sv, sb, negs[0], negs[1], None,
                       m["item"].num, dt)
+
+
+# ---- MF's in-batch ranking losses ----------------------------------------
+#
+# Liu & Natarajan, "A Batch Learning Framework for Scalable Personalized
+# Ranking", AAAI 2018 (arXiv:1711.04019), as arec defines them: the B
+# positives of a batch are every row's candidates, so each row's
+# positive is a shared negative for every other row, and the loss is
+# taken over the [B, B] score matrix.
+
+def _batch_scores(P, m, users, pos, dt):
+    """(scores [B, B] = u·vᵀ + b over the batch's positives, each row's own
+    positive score [B] (its diagonal), the mask [B, B] of every column
+    whose item is the row's positive)."""
+    u, _ = encode(P["user"], m["user"], m["user_slots"], users)
+    v, b = encode(P["item"], m["item"], m["item_slots"], pos)
+    s = mm_cast(u, v.T, dt) + b[None, :]
+    return s, s.diagonal(), pos[None, :] == pos[:, None]
+
+
+def ht_weights(probs, pos, same) -> torch.Tensor:
+    """[B, B] Horvitz–Thompson weights (1 − q_t) / (n_eff · q_j): the
+    vocabulary mass that candidate j stands for in row t, under the
+    proposal q (the empirical item distribution) conditioned on j ≠ t;
+    n_eff is the row's count of unmasked columns, and a masked column
+    weighs 0."""
+    q = probs[pos.long()].clamp_min(1e-12)
+    q_t = probs[pos.long()][:, None]
+    n_eff = (~same).sum(1, keepdim=True).clamp_min(1)
+    return torch.where(same, 0.0, (1.0 - q_t) / (n_eff * q[None, :]))
+
+
+def mw_loss(P, m, users, pos, dt: str, ht: bool) -> torch.Tensor:
+    """`mw`: each row's margin-1 hinge against every unmasked in-batch
+    candidate, weighted by the log of its estimated rank: the mean over
+    rows of log1p(rank) × the mean violating hinge, where rank =
+    (V − 1)·m / (B − 1) from the row's m violations. With `ht` the
+    violations and the hinges are HT-weighted: rank = min(Σ w·[hinge > 0],
+    V − 1), the mean hinge Σ w·hinge ÷ max(that sum, 1e-6).
+
+    Departures from the paper, all arec's: every column whose item is the
+    row's positive is masked, not only the diagonal (a batch repeats
+    popular items); the score carries the item's bias; the HT weights and
+    the rank's cap at V − 1 are arec's correction for a proposal that
+    follows popularity, where the paper's estimate assumes a uniform
+    one."""
+    s, own, same = _batch_scores(P, m, users, pos, dt)
+    hinge = torch.where(same, 0.0, (1.0 + s - own[:, None]).clamp_min(0.0))
+    hit = (hinge > 0).float()
+    V = m["item"].num
+    if ht:
+        w = ht_weights(m["item_probs"], pos, same)
+        wm = (w * hit).sum(1)
+        rank = wm.clamp(max=V - 1.0)
+        mean_hinge = (w * hinge).sum(1) / wm.clamp_min(1e-6)
+    else:
+        n = hit.sum(1)
+        rank = (V - 1) * n / max(len(pos) - 1, 1)
+        mean_hinge = hinge.sum(1) / n.clamp_min(1.0)
+    return (torch.log1p(rank) * mean_hinge).mean()
+
+
+def bbpr_loss(P, m, users, pos, dt: str, ht: bool) -> torch.Tensor:
+    """`bbpr`: the mean over rows of −log σ(own − score) over the row's
+    unmasked in-batch candidates; with `ht` each candidate weighted by
+    its HT weight and the row normalised by their sum. Departures from
+    the paper: the duplicate-positive mask, the item bias and the HT
+    weights, as for `mw`."""
+    s, own, same = _batch_scores(P, m, users, pos, dt)
+    ll = torch.where(same, 0.0, F.logsigmoid(own[:, None] - s))
+    if ht:
+        w = ht_weights(m["item_probs"], pos, same)
+        return -((w * ll).sum(1) / w.sum(1).clamp_min(1e-12)).mean()
+    return -(ll.sum(1) / (~same).sum(1).float().clamp_min(1.0)).mean()
+
+
+BATCH_LOSSES = {"mw": mw_loss, "bbpr": bbpr_loss}
 
 
 def mf_queries(P, m, users):

@@ -15,6 +15,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "float32": 67e12}     # f32 outside the tensor cores
 GATES = {"lstm": 4, "gru": 3}
+BATCH_LOSSES = ("mw", "bbpr")
 
 
 def roofline_s(nbytes: float, flops: float, dtype: str) -> float:
@@ -70,6 +71,19 @@ def ce_s(N, S, D, Dt, backward: bool, dtype="bfloat16") -> float:
     return roofline_s(nbytes, (6 if backward else 2) * N * S * D, dtype)
 
 
+def batch_rank_s(N, D, backward: bool, dtype="bfloat16",
+                 ht: bool = False) -> float:
+    """An in-batch ranking loss (`mw`, `bbpr`) over N rows, whatever
+    computes it: q [N, D], the positives' rows v [N, D], their biases and
+    ids and (with `ht`) their probabilities read once; forward the N row
+    losses written, backward dq, dv and the biases' gradient. One
+    [N, D]·[D, N] product forward, two backward."""
+    ins = 2 * N * D + (3 if ht else 2) * N
+    outs = 2 * N * D + N if backward else N
+    return roofline_s(4 * (ins + outs), (4 if backward else 2) * N * N * D,
+                      dtype)
+
+
 def scatter_s(n_ids: int, n_valid: int, width: int) -> float:
     """row_scatter: the ids read, each valid row read once from the rows
     and written once into the table; no operations."""
@@ -83,10 +97,20 @@ def fusion_flops(n_fields: int, dim: int) -> int:
     return 2 * n_fields * dim * dim
 
 
-def mf_train_step_flops(N, S, D, user_fields, item_fields) -> int:
-    """One MF `ce` step: the fusions of N users, N positives and S
+def mf_train_step_flops(N, S, D, user_fields, item_fields,
+                        loss="ce") -> int:
+    """One MF step. `ce`: the fusions of N users, N positives and S
     negatives forward and backward (3×), the true logits (2·N·D, 3×) and
-    the sampled logits (2·N·S·D forward, twice that backward)."""
+    the sampled logits (2·N·S·D forward, twice that backward). An in-batch
+    loss (`mw`, `bbpr`): the fusions of N users and N positives (3×) and
+    the [N, N] scores (2·N·N·D forward, twice that backward); no
+    negatives."""
+    if loss in BATCH_LOSSES:
+        enc = N * (fusion_flops(user_fields, D)
+                   + fusion_flops(item_fields, D))
+        return 3 * enc + 6 * N * N * D
+    if loss != "ce":
+        raise ValueError(f"no FLOP count for the MF loss {loss!r}")
     enc = (N * fusion_flops(user_fields, D)
            + (N + S) * fusion_flops(item_fields, D))
     return 3 * enc + 3 * 2 * N * D + 6 * N * S * D

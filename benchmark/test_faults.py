@@ -164,8 +164,10 @@ def test_an_altered_answer_is_not_correct(tiny_cells, monkeypatch, capsys,
     real = serve.Recommender._run
 
     def altered(self, batches):
+        # every row of the call, so that whichever answers the check
+        # samples hold an altered one
         ids = real(self, batches)
-        ids[0, 0] = (ids[0, 0] + self._vb[0].shape[0] // 2) % (
+        ids[:, 0] = (ids[:, 0] + self._vb[0].shape[0] // 2) % (
             self._vb[0].shape[0])
         return ids
     monkeypatch.setattr(serve.Recommender, "_run", altered)

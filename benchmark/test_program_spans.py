@@ -51,9 +51,9 @@ def test_a_traced_run_reports_the_program_spans(tiny_cells, capsys, cell):
     assert want - CARD_ONLY <= got
     assert not want & CARD_ONLY & got
     assert all(line["metrics"][k]["value"] >= 0 for k in want - CARD_ONLY)
-    if cell == "c4-serve-online":            # one live row of 256
+    if cell == "c4-serve-online":   # one live row of its 8-row bucket
         assert line["metrics"]["padding_share.serve"]["value"] == (
-            pytest.approx(100 * (1 - 1 / 256)))
+            pytest.approx(100 * (1 - 1 / 8)))
     names = {n for n, _ in line["breakdown"]["device_ops"]}
     assert not names & {"serve.topk", "serve.query", "dispatch.replay"}
 
