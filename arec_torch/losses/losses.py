@@ -273,7 +273,14 @@ def batch_mw_loss(query, true_ids, embed, vocab: int, margin: float = 1.0,
 def batch_bpr_loss(query, true_ids, embed, compute_dtype=torch.bfloat16,
                    gather_cands=None, pop_probs=None):
     """`bbpr`: BPR over the in-batch score matrix (self-normalised HT
-    weights with pop_probs)."""
+    weights with pop_probs). On one card in bf16 (CUDA tensors, no
+    gather_cands) the fused kernels of `kernels.batch_rank`, which never
+    write the [b, B] scores; elsewhere the library ops below."""
+    if (gather_cands is None and query.is_cuda
+            and compute_dtype == torch.bfloat16):
+        from arec_torch.kernels.batch_rank import batch_bpr_rows
+        v, b_bias = embed(true_ids)
+        return batch_bpr_rows(query, v, b_bias, true_ids, pop_probs).mean()
     scores, pos, same, cand_ids = _batch_scores(
         query, true_ids, embed, compute_dtype, gather_cands)
     ll = torch.where(same, 0.0, F.logsigmoid(pos[:, None] - scores))

@@ -20,7 +20,9 @@
    (source, destination) phase pair of its 16-byte path, with its launch
    plan: grid, registers, resident blocks, vector width; the fused
    seen-masked top-k at MF's and c4's serving shapes, up to ties, with its
-   launch plan), checks
+   launch plan; the fused in-batch BPR loss at the MF batch, with and
+   without HT weights, against the library ops it replaces, and its
+   device launches in a captured `bbpr` step's replay by symbol), checks
    that the scans repeat bit for bit, and times kernel, plain version and
    a library call (a yardstick only); the bf16 scan backwards also by
    stage (gate pass, sweep, dWh).
@@ -1625,6 +1627,208 @@ def bound_topk(B, V, D, S, k):
     query, the seen slab and the lists; 2·B·V·D product FLOPs."""
     nbytes = V * D * 2 + V * 4 + B * D * 4 + B * S * 4 + B * k * 12
     return roofline(nbytes, 2 * B * V * D, "bfloat16")
+
+
+# batch_rank's device kernels by symbol: a forward call launches prep,
+# fwd and merge, a backward call prep, the rows pass and its combine, the
+# columns pass and its reduce
+BATCH_RANK_SYMBOL = r"\bbatch_rank_\w+_kernel\b"
+BATCH_RANK_PER_STEP = {"batch_rank_prep_kernel": 2, "batch_rank_fwd_kernel": 1,
+                       "batch_rank_merge_kernel": 1,
+                       "batch_rank_bwd_rows_kernel": 1,
+                       "batch_rank_rows_combine_kernel": 1,
+                       "batch_rank_bwd_cols_kernel": 1,
+                       "batch_rank_cols_reduce_kernel": 1}
+
+
+def batch_rank_replayed(dev, K=4):
+    """K `bbpr` sparse MF steps with HT weights (a small synthetic twin,
+    batch 256) as one CUDA graph, as the K-step dispatch runs them: the
+    warm-up and capture, then one replay under torch.profiler. Returns
+    {kernel symbol: device launches a step} of the replay, counted by
+    symbol (a replay runs no wrapper), checked against BATCH_RANK_PER_STEP."""
+    import re
+
+    import torch
+    from arec_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from arec_torch.data.dataset import mf_batches
+    from arec_torch.data.synthetic import generate
+    from arec_torch.losses.sampling import make_pop
+    from arec_torch.models import mf as tmf
+    from arec_torch.tables.engine import attrs_to_device
+    from arec_torch.train import sparse as tsparse
+    from arec_torch.train import step as tstep
+    from arec_torch.train.graph import scan_multi
+
+    cfg = Config(data=DataConfig(syn_users=400, syn_items=600,
+                                 syn_interactions=20000),
+                 model=ModelConfig(model="mf", dim=64, use_attributes=True),
+                 train=TrainConfig(batch_size=256, loss="bbpr", batch_ht=True,
+                                   compute_dtype="bfloat16",
+                                   learning_rate=0.2, sparse_update=True))
+    ds = generate(cfg.data)
+    spec = tmf.MFSpec.from_config(cfg, ds.user_schema, ds.item_schema)
+    udev, idev = (attrs_to_device(a.restrict(enc.schema), enc, dev)
+                  for a, enc in ((ds.user_attrs, spec.user),
+                                 (ds.item_attrs, spec.item)))
+    opt = tstep.make_optimizer("adagrad", 0.2)
+    core = tsparse.make_sparse_step_core(
+        False, spec, udev, idev, opt, 0.2, "adagrad",
+        pop=make_pop(ds.item_freq, 1.0, dev))
+    state = tsparse.init_sparse_state(
+        tmf.init_mf(torch.Generator(device=dev).manual_seed(0), spec),
+        tsparse.table_paths(False, spec), opt, "adagrad")
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in b.items()}
+               for b in mf_batches(ds, 256, 0, 0)]
+    multi = scan_multi(core, K)
+
+    def dispatch(d):
+        return multi(state, [batches[(d * K + i) % len(batches)]
+                             for i in range(K)],
+                     [tstep.step_generator(0, d * K + i) for i in range(K)])
+    state = dispatch(0)[0]
+    _, devs, _, _ = traced(lambda: dispatch(1))
+    assert (multi.captures, multi.replays) == (1, 1)
+    per_step = {}
+    for key, (n, _) in devs.items():
+        m = re.search(BATCH_RANK_SYMBOL, key)
+        if m:
+            per_step[m.group(0)] = per_step.get(m.group(0), 0) + n / K
+    assert per_step == BATCH_RANK_PER_STEP, per_step
+    log(f"batch_rank in a replay of {K} bbpr sparse steps, device launches "
+        f"a step by symbol (profiler): {per_step}")
+    return per_step
+
+
+def batch_rank_phase(dev, N=8192, D=128, iters=20):
+    """The fused in-batch BPR loss (`kernels/batch_rank`, `bbpr`) against
+    the library ops it replaces on one card (`losses.batch_bpr_loss`'s,
+    which the mesh and `mw` keep) at xing-mf's batch, with the HT weights
+    and without: one call each, its wrappers' launches counted, held to the
+    library ops at the tolerances of tests/test_torch_batch_rank_cuda.py
+    (the loss to 1e-5, dq and dv each element within one bf16 rounding and
+    fewer than 5e-3 of them apart at all, db to 1e-4); then device time a
+    call over `iters` back-to-back calls (CUDA events) of the forward alone
+    and of the forward and backward, for the kernels, their plain versions
+    and the library ops, the kernels' split by symbol (profiler), the
+    bound of the pair's operations and bytes, and the device launches of
+    a captured step's replay by symbol (`batch_rank_replayed`). Returns
+    {"ht": ..., "plain": ..., "replayed_per_step": ..., "launches": the
+    wrappers' launches over the phase}."""
+    import numpy as np
+    import torch
+    from arec_torch.kernels import batch_rank as kbr
+    from arec_torch.losses import losses
+
+    kbr.batch_rank_fwd.launches = kbr.batch_rank_bwd.launches = 0
+    rng = np.random.default_rng(11)
+    vocab = N // 4 + 1
+    pos_np = np.minimum(rng.zipf(1.3, N) - 1, vocab - 1)
+    freq = rng.integers(1, 1000, vocab).astype(np.float64)
+    arrays = [rng.standard_normal((N, D)) * 0.3,
+              rng.standard_normal((N, D)) * 0.3, rng.standard_normal(N) * 0.2]
+    q, v, b = (torch.from_numpy(a.astype(np.float32)).to(dev)
+               for a in arrays)
+    pos = torch.from_numpy(pos_np).to(dev)
+    pop = torch.from_numpy((freq / freq.sum()).astype(np.float32)).to(dev)
+    out = {}
+    for ht in (True, False):
+        pp = pop if ht else None
+        pq = pop[pos] if ht else None
+        leaves = [x.clone().requires_grad_() for x in (q, v, b)]
+
+        def loss(library, pp=pp, leaves=leaves):
+            gather = (lambda i, vv, bb: (i, vv, bb, 0)) if library else None
+            return losses.batch_bpr_loss(
+                leaves[0], pos, lambda ids: (leaves[1], leaves[2]),
+                torch.bfloat16, gather_cands=gather, pop_probs=pp)
+
+        def both(library, loss=loss, leaves=leaves):
+            x = loss(library)
+            return (x.detach(), *torch.autograd.grad(x, leaves))
+        before = kbr.batch_rank_fwd.launches, kbr.batch_rank_bwd.launches
+        got = both(False)
+        assert (kbr.batch_rank_fwd.launches - before[0],
+                kbr.batch_rank_bwd.launches - before[1]) == (1, 1)
+        want = both(True)
+        torch.cuda.synchronize()
+        err = {"loss_rel": float((got[0] - want[0]).abs() / want[0].abs())}
+        for name, g, w in zip(("dq", "dv", "db"), got[1:], want[1:]):
+            err[f"{name}_max_rel"] = float((g - w).abs().max()
+                                           / w.abs().max())
+            err[f"{name}_share_apart"] = float((g != w).float().mean())
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-7)
+        for name, g, w in zip(("dq", "dv"), got[1:3], want[1:3]):
+            torch.testing.assert_close(
+                g, w, rtol=2 ** -7, atol=1e-6 * float(w.abs().max()),
+                msg=lambda m, name=name: f"batch_rank {name} ht={ht}: {m}")
+            assert err[f"{name}_share_apart"] < 5e-3, (name, ht, err)
+        torch.testing.assert_close(got[3], want[3], rtol=1e-4,
+                                   atol=1e-5 * float(want[3].abs().max()))
+        pos32 = pos.int()
+        with torch.no_grad():
+            rs_t = kbr.batch_rank_fwd(q, v, b, pos32, pq)
+        gr = torch.full((N,), 1.0 / N, device=dev)
+        calls = {
+            "fwd_ms": lambda: kbr.batch_rank_fwd(q, v, b, pos32, pq),
+            "bwd_ms": lambda: kbr.batch_rank_bwd(q, v, b, pos32, pq, gr,
+                                                 *rs_t[1:]),
+            "ms": lambda: both(False),
+            "plain_ms": lambda: kbr.batch_rank_bwd_plain(
+                q, v, b, pos, pq, gr,
+                *kbr.batch_rank_fwd_plain(q, v, b, pos, pq)[1:]),
+            "library_fwd_ms": lambda: loss(True).detach(),
+            "library_ms": lambda: both(True)}
+        t = {key: cuda_ms(fn, iters) for key, fn in calls.items()}
+        _, devs, _, busy_ms = traced(lambda: [both(False)
+                                              for _ in range(iters)])
+        t["by_kernel_ms"] = {key: us / (iters * 1e3)
+                             for key, (_, us) in devs.items()
+                             if "batch_rank_" in key}
+        nbytes = 4 * (2 * N * D + (3 if ht else 2) * N) + 4 * (
+            2 * N * D + 2 * N)
+        bms, by = roofline(nbytes, 6 * N * N * D, "bfloat16")[:2]
+        t.update(bound_ms=bms, bound_by=by, bytes=nbytes,
+                 flops=6 * N * N * D, busy_ms=busy_ms / iters, **err,
+                 shape=f"N={N} D={D} ht={ht}")
+        report("batch_rank", t["shape"], "fwd+bwd", t,
+               "batch_bpr_loss's ops, fwd+bwd")
+        log(f"batch_rank {t['shape']}: forward {t['fwd_ms']:.4f} ms, "
+            f"backward {t['bwd_ms']:.4f} ms; library forward "
+            f"{t['library_fwd_ms']:.4f} ms; by kernel "
+            + json.dumps({k: round(x, 5) for k, x in
+                          t["by_kernel_ms"].items()})
+            + f"; against the library ops {json.dumps(err)}")
+        out["ht" if ht else "plain"] = t
+        del leaves, calls, rs_t
+    out["launches"] = kbr.batch_rank_fwd.launches + kbr.batch_rank_bwd.launches
+    out["replayed_per_step"] = batch_rank_replayed(dev)
+    log("batch_rank " + json.dumps(out, default=str))
+    return out
+
+
+def batch_rank_row(out):
+    """The kernels line's entry of the fused in-batch loss, from
+    `batch_rank_phase`'s return (HT weights on; without them beside)."""
+    t = out["ht"]
+    keys = ("ms", "fwd_ms", "bwd_ms", "plain_ms", "library_ms",
+            "library_fwd_ms", "bound_ms", "bound_by", "loss_rel",
+            "dq_max_rel", "dv_max_rel", "db_max_rel", "dq_share_apart",
+            "dv_share_apart", "db_share_apart", "by_kernel_ms", "shape")
+    return {
+        "name": "batch_rank", "route": "cuda",
+        "source": "arec_torch/csrc/batch_rank.cu", "replaces": None,
+        "replaces_fn": "none (arec's in-batch loss is jnp, left to XLA)",
+        "launches": out["launches"],
+        "launches_replayed_per_step": out["replayed_per_step"],
+        **{k: t[k] for k in keys}, "kernel_ms": t["ms"],
+        "library": "losses.batch_bpr_loss's library ops, forward+backward",
+        "timing": "device time per call over back-to-back calls (CUDA "
+                  "events), forward and backward through the autograd "
+                  "Function; launches: the wrappers' calls over the phase; "
+                  "launches_replayed_per_step: a captured bbpr step's "
+                  "replay, by symbol (profiler)",
+        "dtype": "bfloat16", "no_ht": {k: out["plain"][k] for k in keys}}
 
 
 def mips_topk_phase(dev, shapes=TOPK_SHAPES, k=30):
@@ -4228,6 +4432,7 @@ def main() -> int:
         return 2
     try:
         from arec_torch.kernels import _build, lstm_scan as tk
+        from arec_torch.kernels import batch_rank as tbr
         from arec_torch.kernels import gru_scan as tg
         from arec_torch.kernels import mips_topk as tmk
         from arec_torch.kernels import row_scatter as trs
@@ -4249,7 +4454,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build([tk.KERNEL, tk.KERNEL_BWD, tks.KERNEL,
                             tg.KERNEL, tg.KERNEL_BWD, trs.KERNEL,
-                            tmk.KERNEL])
+                            tmk.KERNEL, tbr.KERNEL])
     log(f"built {sorted(reports) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
@@ -4269,6 +4474,8 @@ def main() -> int:
     scatter_times, scatter_plans = row_scatter_phase(dev)
     free()
     topk_times = mips_topk_phase(dev)
+    batch_rank = batch_rank_phase(dev)
+    free()
     served, trained = {}, {}
     for cell in ("lstm", "gru"):
         served[cell] = slice_phase(dev, cell)
@@ -4499,6 +4706,7 @@ def main() -> int:
         "back_to_back_ms": t["back_to_back_ms"], "dtype": "bfloat16",
         "shape": t["shape"], "launch_plan": t["plan"],
         "c4_shape": {k: topk_times["c4"][k] for k in keys}})
+    kernels.append(batch_rank_row(batch_rank))
     assert all(k["launches"] > 0 for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     log(card)
